@@ -7,29 +7,49 @@ Needs one CUDA card, ``nvcc`` and the repo's ``src/`` beside this file; it
 imports nothing of JAX and nothing of the JAX package. Phases, each of which
 stops the run with a non-zero exit when it fails:
 
-1. build   — print the card and its power limit; build the KIVI CUDA kernel
-             from ``src/repro_torch/kernels/kivi/csrc/kivi.cu``.
-2. kernels — at the full-width adaptcache-8b KVData shape, a (32*T, 1024)
-             f32 matrix with T = 512, for 8/4/2 bits and K-style (axis 0)
-             and V-style (axis 1) grouping: the kernel's packed codes,
-             scales, zeros and dequantized values are bit-equal to the
-             plain torch version (``ref.py``) on the same inputs. Kernel and
-             plain version are timed with CUDA events (warm-up, a
-             synchronize on every repetition) beside the byte bound.
+1. build   — print the card and its power limit; build the four CUDA
+             libraries (``kivi``, ``decode_attn``, ``fused_prefill``,
+             ``flash_attn`` under ``src/repro_torch/kernels/*/csrc/``), one
+             ``nvcc`` each, all started together.
+2. kernels — at full-width adaptcache-8b shapes, each kernel against its
+             plain torch version (``ref.py``) on the same inputs on the card:
+             KIVI quantize/dequantize bit-equal on a (32*512, 1024) f32
+             matrix for 8/4/2 bits and both groupings; decode_attn (8 planes,
+             4 query rows, 4096 tokens, hd 128) and fused_prefill (32 planes,
+             a 32-token chunk over 4096 packed tokens) for 8/4/2 bits and
+             valid lengths T, partial and 0, within rtol 1e-4 / atol 2e-4,
+             with bytes past the valid length set to 255 changing nothing;
+             flash_attention (S 4096, 32 heads over 8 KV heads) for f32 and
+             bf16 inputs within the same tolerance. Each is timed with CUDA
+             events (warm-up, a synchronize on every repetition) beside its
+             plain version, its bound and, for flash_attention, PyTorch's
+             ``scaled_dot_product_attention`` in f32 (TF32 off); the
+             attention kernels and their plain versions also as device time
+             (CUDA-graph replays, without the host's share).
 3. serving — full-width adaptcache-8b (32 layers, d_model 4096, bf16,
              seeded random weights, ~16 GB) behind ``build_engine`` with the
              fixed KIVI policy, so every insert compresses and every hit
              decompresses: ``engine.process`` on Poisson requests, then
-             ``summarize``. The kernel launch counters are zeroed just
-             before ``process`` and read just after; every kernel of the
-             path must have launched. Then the outputs are checked: the
-             summary is complete and finite, compressing a real prefill
-             entry through the kernel gives the plain version's bytes, and
-             the model's decode step agrees with its prefill.
+             ``summarize``. The KIVI launch counters are zeroed just before
+             ``process`` and read just after; every kernel of the path must
+             have launched. Then the outputs are checked: the summary is
+             complete and finite, compressing a real prefill entry through
+             the kernel gives the plain version's bytes, and the model's
+             decode step agrees with its prefill.
+4. fused   — the fused-compute path: the port's ``kernel_bench`` at full
+             width measures the fused calibration on the card (the counters
+             of decode_attn, fused_prefill and flash_attention are zeroed
+             just before and must each be above 0 just after); phase 3's
+             workload is served again on the same runner with
+             ``fused_compute=True`` and the measured residual fraction. The
+             summary must be complete and finite, the residual in [0, 1],
+             and where hits and quality equal phase 3's, the mean TTFT no
+             higher.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Measurements also go to
 ``chiprun_out/chip_smoke.json``.
+The measured fused calibration goes beside it (``fused_calibration.json``).
 """
 from __future__ import annotations
 
@@ -50,6 +70,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BPS = 3.35e12            # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS = 67e12              # H100 SXM f32 outside the tensor cores
+TF32_OPS = 495e12            # H100 SXM dense TF32 tensor cores
+TOL = dict(rtol=1e-4, atol=2e-4)
 ARCH = "adaptcache-8b"
 T_TOKENS = 512               # context length of the kernel phase
 MAIN_BITS = 4                # KIVI rate 0.16 picks 4 bits (the served path)
@@ -58,8 +80,23 @@ RATE = 0.16
 QUANT_OPS = 9                # min, max, sub, div, rint, 2 clamps, shift, or
 DEQUANT_OPS = 5              # shift, and, convert, fma (2)
 REPLACES = {"quantize": "src/repro/kernels/kivi/kernel.py:71",
-            "dequantize": "src/repro/kernels/kivi/kernel.py:99"}
+            "dequantize": "src/repro/kernels/kivi/kernel.py:99",
+            "decode_attn": "src/repro/kernels/decode_attn/kernel.py:133",
+            "fused_prefill": "src/repro/kernels/fused_prefill/kernel.py:127",
+            "flash_attention": "src/repro/kernels/prefill_attn/kernel.py:73"}
 SOURCE = "src/repro_torch/kernels/kivi/csrc/kivi.cu"
+SOURCES = {"decode_attn": "src/repro_torch/kernels/decode_attn/csrc/"
+                          "decode_attn.cu",
+           "fused_prefill": "src/repro_torch/kernels/fused_prefill/csrc/"
+                            "fused_prefill.cu",
+           "flash_attention": "src/repro_torch/kernels/prefill_attn/csrc/"
+                              "flash_attn.cu"}
+# full-width adaptcache-8b: 32 query heads over 8 KV heads, head dim 128,
+# KIVI group 64; decode (P planes, Gq rows, T tokens), fused (P planes,
+# C-token chunk, T-token prefix), flash (B, S, H, Kv)
+DECODE = dict(p=8, gq=4, t=4096, hd=128, group=64)
+FUSED = dict(p=32, c=32, t=4096, hd=128, group=64)
+FLASH = dict(b=1, s=4096, h=32, kv=8, hd=128)
 
 
 def fail(msg: str) -> None:
@@ -85,9 +122,221 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / F32_OPS * 1e3
+def device_ms(fn, calls: int) -> float:
+    """Device time of one call, without the host's share: ``calls`` calls
+    captured into one CUDA graph, the graph replayed between CUDA events
+    (median of 5 replays, a synchronize after each), divided by
+    ``calls``. ``time_ms`` of a small kernel is mostly the Python wrapper
+    and the launch; this is the time the card spends."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_rate: float = F32_OPS):
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound(n_bytes: float, flops: float) -> dict:
+    """The least time for an attention kernel: its bytes over the memory
+    rate or its matrix-product operations over the TF32 tensor-core rate,
+    whichever is larger; beside it the f32 CUDA-core time of the same
+    operations, the rate these first kernels run at."""
+    t, by = bound_ms(n_bytes, flops, TF32_OPS)
+    return {"bound_ms": t, "bound_by": by, "bytes": n_bytes, "flops": flops,
+            "f32_core_ms": flops / F32_OPS * 1e3}
+
+
+def close_err(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error of a kernel against its plain version; fails outside
+    rtol 1e-4 / atol 2e-4 or on a non-finite value."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{what}: shape {tuple(got.shape)} (want {tuple(want.shape)}) "
+             "or non-finite values")
+    if not torch.allclose(got, want, **TOL):
+        fail(f"{what}: differs from the plain version beyond rtol 1e-4 / "
+             f"atol 2e-4 (max abs err {float((got - want).abs().max()):.3g})")
+    return float((got - want).abs().max())
+
+
+def packed_planes(seed: int, p: int, t: int, hd: int, bits: int,
+                  group: int):
+    """Random K and V planes (P, T, hd), KIVI-packed on the card in the
+    decode_attn layout: [k_packed, k_scale, k_zero, v_packed, v_scale,
+    v_zero]."""
+    from repro_torch.launch.kernel_bench import quantize_planes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn((p, t, hd), generator=gen, device="cuda")
+    v = torch.randn((p, t, hd), generator=gen, device="cuda")
+    return (list(quantize_planes(k, bits, group, 0)[:3])
+            + list(quantize_planes(v, bits, group, 1)[:3]))
+
+
+def valid_lengths(p: int, t: int):
+    """cur_len (P, 1) cases: all T tokens, a spread of partial lengths
+    above 0 (splits wholly past the end among them), and 0 (every token
+    masked: the uniform mean of all T values)."""
+    partial = [t, t - 1, 1, t // 2] + [max(1, (977 * i + 61) % t)
+                                       for i in range(p)]
+    return {name: torch.tensor(n[:p], dtype=torch.int32,
+                               device="cuda").reshape(p, 1)
+            for name, n in (("full", [t] * p), ("partial", partial),
+                            ("zero", [0] * p))}
+
+
+def spoil_tail(packs, cur: torch.Tensor, bits: int):
+    """Copies of the packed planes with every byte that holds only tokens
+    at or past cur_len set to 255."""
+    cpb = 8 // bits
+    out = [x.clone() for x in packs]
+    for i, n in enumerate(cur[:, 0].tolist()):
+        out[0][i, -(-n // cpb):] = 255            # K: tokens along rows
+        out[3][i, n:] = 255                       # V: one row per token
+    return out
+
+
+def phase_packed_attention(name: str, dims: dict, kernel_fn, plain_fn,
+                           io_floats: int, flops: float, seed: int):
+    """decode_attn or fused_prefill at ``dims``: the kernel against its
+    plain version for 8/4/2 bits and every valid-length case, the tail
+    check, and the timings. ``kernel_fn(packs, cur_len, **kw)`` and
+    ``plain_fn`` run one call on the packed planes; ``io_floats`` counts
+    the f32 values of the call's dense inputs and output."""
+    p, t, hd, g = dims["p"], dims["t"], dims["hd"], dims["group"]
+    lens = valid_lengths(p, t)
+    rows, worst = [], 0.0
+    for bits in (8, 4, 2):
+        packs = packed_planes(seed + bits, p, t, hd, bits, g)
+        kw = dict(bits=bits, k_group=g, v_group=g)
+        outs = {}
+        for case, cur in lens.items():
+            outs[case] = kernel_fn(packs, cur, **kw)
+            worst = max(worst, close_err(
+                f"{name} bits={bits} cur_len={case}", outs[case],
+                plain_fn(packs, cur, **kw)))
+        spoiled = spoil_tail(packs, lens["partial"], bits)
+        if not torch.equal(kernel_fn(spoiled, lens["partial"], **kw),
+                           outs["partial"]):
+            fail(f"{name} bits={bits}: bytes past cur_len changed the "
+                 "output")
+        n_bytes = (io_floats * 4 + 2 * p * t * hd * bits / 8
+                   + 2 * 2 * p * (t // g) * hd * 4 + p * 4)
+        kern = lambda: kernel_fn(packs, lens["full"], **kw)
+        plain = lambda: plain_fn(packs, lens["full"], **kw)
+        row = {"bits": bits, "shape": dict(dims),
+               "ms": device_ms(kern, calls=20),
+               "plain_ms": device_ms(plain, calls=5),
+               "call_ms": time_ms(kern, reps=20),
+               "plain_call_ms": time_ms(plain, reps=5),
+               **attention_bound(n_bytes, flops)}
+        rows.append(row)
+        print(f"  {name} bits={bits} {dims}: within tolerance for cur_len "
+              f"T / partial / 0, tail bytes ignored; device "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}, f32 cores "
+              f"{row['f32_core_ms']:.4f}); per call {row['call_ms']:.4f} "
+              f"ms (plain {row['plain_call_ms']:.4f})")
+    return rows, worst
+
+
+def phase_decode_attn(ops, ref):
+    d = DECODE
+    p, gq, t, hd = d["p"], d["gq"], d["t"], d["hd"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((p, gq, hd), generator=gen, device="cuda")
+    return phase_packed_attention(
+        "decode_attn", d,
+        lambda packs, cur, **kw: ops.decode_attention_planes(
+            q, *packs, cur, **kw),
+        lambda packs, cur, **kw: ref.decode_attention_planes_ref(
+            q, *packs, cur, **kw),
+        io_floats=2 * p * gq * hd, flops=4 * p * gq * t * hd, seed=0)
+
+
+def phase_fused_prefill(ops, ref):
+    f = FUSED
+    p, c, t, hd = f["p"], f["c"], f["t"], f["hd"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, kc, vc = (torch.randn((p, c, hd), generator=gen, device="cuda")
+                 for _ in range(3))
+    return phase_packed_attention(
+        "fused_prefill", f,
+        lambda packs, cur, **kw: ops.chunk_prefill_planes(
+            q, *packs, kc, vc, cur, **kw),
+        lambda packs, cur, **kw: ref.chunk_prefill_planes_ref(
+            q, *packs, kc, vc, cur, **kw),
+        io_floats=4 * p * c * hd, flops=4 * p * c * hd * (t + (c + 1) / 2),
+        seed=10)
+
+
+def phase_flash_attention(ops, ref):
+    import torch.nn.functional as F
+    fa = FLASH
+    b, s, h, kv, hd = fa["b"], fa["s"], fa["h"], fa["kv"], fa["hd"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+    k = torch.randn((b, s, kv, hd), generator=gen, device="cuda")
+    v = torch.randn((b, s, kv, hd), generator=gen, device="cuda")
+    rows, worst = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+        got = ops.causal_attention(qq, kk, vv)
+        worst = max(worst, close_err(f"flash_attention {dtype}", got,
+                                     ref.causal_attention_gqa_ref(qq, kk,
+                                                                  vv)))
+        es = qq.element_size()
+        n_bytes = (b * s * h * hd * es + 2 * b * s * kv * hd * es
+                   + b * s * h * hd * 4)
+        kern = lambda: ops.causal_attention(qq, kk, vv)
+        plain = lambda: ref.causal_attention_gqa_ref(qq, kk, vv)
+        row = {"dtype": str(dtype).replace("torch.", ""), "shape": dict(fa),
+               "ms": device_ms(kern, calls=2),
+               "plain_ms": device_ms(plain, calls=1),
+               "call_ms": time_ms(kern, reps=10),
+               "plain_call_ms": time_ms(plain, reps=3),
+               "library_ms": None,
+               **attention_bound(n_bytes, 4 * b * h * hd * s * (s + 1) / 2)}
+        if dtype == torch.float32:
+            # the yardstick only: PyTorch's own attention, f32, no TF32
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            # per call: at this size the host's share is negligible
+            row["library_ms"] = time_ms(lib, reps=10)
+            row["library_max_abs_diff"] = float(
+                (lib().transpose(1, 2) - got).abs().max())
+        rows.append(row)
+        print(f"  flash_attention {row['dtype']} (B, S, H, Kv, hd)=({b}, "
+              f"{s}, {h}, {kv}, {hd}): within tolerance; device "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, sdpa "
+              f"{row['library_ms']}, bound {row['bound_ms']:.4f} by "
+              f"{row['bound_by']}, f32 cores {row['f32_core_ms']:.4f}); per "
+              f"call {row['call_ms']:.4f} ms (plain "
+              f"{row['plain_call_ms']:.4f})")
+    return rows, worst
 
 
 def kv_matrix(rows: int, cols: int, bits: int, seed: int) -> torch.Tensor:
@@ -171,14 +420,60 @@ def phase_kernels(kernel, ref, Quantized):
     return results, worst
 
 
-def phase_serving(kernel):
+def serve(runner, cfg, n_active: int, **engine_kw):
+    """Serve the fixed workload (one context per task, ~8 s of Poisson
+    requests, seeded) through ``build_engine`` with the fixed KIVI policy,
+    and check the summary. Returns (summary, results, contexts, wall
+    seconds of ``engine.process``, the KIVI launches during it)."""
+    from repro_torch.kernels.kivi import kernel as kivi_kernel
+    from repro_torch.serving.baselines import build_engine
+    from repro_torch.serving.engine import summarize
+    from repro_torch.serving.workload import make_contexts, poisson_requests
+
+    rng = np.random.RandomState(0)
+    contexts = make_contexts(rng, cfg.vocab_size, 1, min_len=384,
+                             max_len=640, n_probes=2)
+    requests = poisson_requests(rng, contexts, rate_hz=1.0, duration_s=8.0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssd_") as ssd_root:
+        rig = build_engine(runner, contexts, cfg, n_active,
+                           policy=("kivi", RATE), dram_entries=1.5,
+                           ssd_entries=6.0, ssd_root=ssd_root, **engine_kw)
+        for k in kivi_kernel.LAUNCHES:
+            kivi_kernel.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        results = rig.engine.process(requests)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(kivi_kernel.LAUNCHES)
+    summary = summarize(results, selector_stats=rig.controller.selector.stats)
+    print(f"  {len(contexts)} contexts of "
+          f"{[len(c.tokens) for c in contexts]} tokens, {len(requests)} "
+          f"requests, engine.process {wall_s:.2f} s wall")
+    check_summary(summary, results, len(requests))
+    return summary, results, contexts, wall_s, launches
+
+
+def check_summary(summary, results, n_requests: int) -> None:
+    """Complete, finite, answered, and the cache served hits."""
+    if summary.get("n") != n_requests or len(results) != n_requests:
+        fail(f"summary counts {summary.get('n')} of {n_requests} requests")
+    bad = [k for k, v in summary.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        fail(f"non-finite summary values: {bad}")
+    if not 0.0 <= summary["quality_mean"] <= 1.0:
+        fail(f"quality_mean {summary['quality_mean']} outside [0, 1]")
+    if summary["hit_rate"] <= 0.0:
+        fail("no request hit the cache: decompress never served")
+    if any(len(r.answer) == 0 for r in results):
+        fail("a request produced no answer tokens")
+
+
+def phase_serving():
     from repro_torch.configs import get_config
     from repro_torch.core.compression import KIVICompression
     from repro_torch.models import build_model
-    from repro_torch.serving.baselines import build_engine
-    from repro_torch.serving.engine import summarize
     from repro_torch.serving.runner import ModelRunner
-    from repro_torch.serving.workload import make_contexts, poisson_requests
 
     cfg = get_config(ARCH)
     model = build_model(cfg)
@@ -193,27 +488,8 @@ def phase_serving(kernel):
           f"({n_params * 2 / 1e9:.2f} GB), init "
           f"{time.perf_counter() - t0:.1f} s")
     runner = ModelRunner(model, params, capacity=1024)
-
-    rng = np.random.RandomState(0)
-    contexts = make_contexts(rng, cfg.vocab_size, 1, min_len=384,
-                             max_len=640, n_probes=2)
-    requests = poisson_requests(rng, contexts, rate_hz=1.0, duration_s=8.0)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssd_") as ssd_root:
-        rig = build_engine(runner, contexts, cfg,
-                           model.active_param_count(), policy=("kivi", RATE),
-                           dram_entries=1.5, ssd_entries=6.0,
-                           ssd_root=ssd_root)
-        for k in kernel.LAUNCHES:
-            kernel.LAUNCHES[k] = 0
-        t0 = time.perf_counter()
-        results = rig.engine.process(requests)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = dict(kernel.LAUNCHES)
-    summary = summarize(results, selector_stats=rig.controller.selector.stats)
-    print(f"  {len(contexts)} contexts of "
-          f"{[len(c.tokens) for c in contexts]} tokens, {len(requests)} "
-          f"requests, engine.process {wall_s:.2f} s wall")
+    n_active = model.active_param_count()
+    summary, _, contexts, wall_s, launches = serve(runner, cfg, n_active)
     print("  summary (TTFT is simulated on the reference's A100 TimeModel, "
           "not measured on this card):")
     for k, v in summary.items():
@@ -222,20 +498,6 @@ def phase_serving(kernel):
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         fail(f"main path never launched {missing}")
-
-    # outputs: complete, finite, answered
-    if summary.get("n") != len(requests) or len(results) != len(requests):
-        fail(f"summary counts {summary.get('n')} of {len(requests)} requests")
-    bad = [k for k, v in summary.items()
-           if isinstance(v, float) and not math.isfinite(v)]
-    if bad:
-        fail(f"non-finite summary values: {bad}")
-    if not 0.0 <= summary["quality_mean"] <= 1.0:
-        fail(f"quality_mean {summary['quality_mean']} outside [0, 1]")
-    if summary["hit_rate"] <= 0.0:
-        fail("no request hit the cache: decompress never served")
-    if any(len(r.answer) == 0 for r in results):
-        fail("a request produced no answer tokens")
 
     # a real prefill entry through the kernel == the plain version's bytes
     kv = runner.prefill_entry(contexts[0].tokens)
@@ -271,15 +533,91 @@ def phase_serving(kernel):
     if not (torch.isfinite(got).all() and rel < 5e-2):
         fail(f"decode step disagrees with prefill: max rel err {rel:.3g}")
     print(f"  decode step vs prefill logits (bf16): max rel err {rel:.3g}")
-    return summary, launches
+    return summary, launches, wall_s, (runner, cfg, n_active)
+
+
+def phase_fused(attn_kernels, summary3, serving):
+    """The fused-compute path: kernel_bench's calibration on the card, then
+    the same workload priced with it."""
+    import contextlib
+    import io
+
+    from repro_torch.core.estimator import load_fused_calibration
+    from repro_torch.launch import kernel_bench
+
+    for mod in attn_kernels.values():
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cal_") as tmp, \
+            contextlib.redirect_stdout(buf):
+        cal_path = Path(tmp) / "fused_calibration.json"
+        kernel_bench.main(["--out", str(cal_path)])
+        torch.cuda.synchronize()
+        cal = load_fused_calibration(str(cal_path))
+        raw = json.loads(cal_path.read_text())
+    bench_s = time.perf_counter() - t0
+    launches = {name: mod.LAUNCHES[name]
+                for name, mod in attn_kernels.items()}
+    rows = [r for r in buf.getvalue().splitlines() if r]
+    print(f"  kernel_bench (full width) in {bench_s:.1f} s:")
+    for r in rows:
+        print(f"    {r}")
+    print(f"  kernel launches during kernel_bench: {launches}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        fail(f"the fused-compute path never launched {missing}")
+    if not all(math.isfinite(x) and x > 0
+               for x in (cal.fused_s, cal.dequant_s, cal.attn_s)):
+        fail(f"calibration times not finite and positive: {raw}")
+    if not 0.0 <= cal.residual_frac <= 1.0:
+        fail(f"residual fraction {cal.residual_frac} outside [0, 1]")
+    print(f"  calibration ({raw['shape']}, {raw['bits']} bits, "
+          f"{raw['device']}, {raw['power_limit']}): fused "
+          f"{cal.fused_s * 1e3:.4f} ms, dequant {cal.dequant_s * 1e3:.4f} ms, "
+          f"attn {cal.attn_s * 1e3:.4f} ms; residual {cal.residual_frac:.4f},"
+          f" speedup {cal.speedup:.3f}x")
+
+    runner, cfg, n_active = serving
+    summary, _, _, wall_s, _ = serve(runner, cfg, n_active,
+                                     fused_compute=True,
+                                     fused_residual_frac=cal.residual_frac)
+    print("  phase 3 (profiled decompress) vs fused pricing at the measured "
+          "residual (simulated TTFT, A100 TimeModel):")
+    for k, v in summary.items():
+        print(f"    {k:28s} {summary3.get(k)!s:>24s}  {v}")
+    same = (summary["hit_rate"] == summary3["hit_rate"]
+            and summary["quality_mean"] == summary3["quality_mean"])
+    speedup = summary3["ttft_mean_s"] / max(summary["ttft_mean_s"], 1e-12)
+    print(f"  same hits and quality: {same}; mean TTFT "
+          f"{summary3['ttft_mean_s']:.6f} -> {summary['ttft_mean_s']:.6f} s "
+          f"({speedup:.4f}x)")
+    if same and summary["ttft_mean_s"] > summary3["ttft_mean_s"]:
+        fail("fused pricing charged more at the same hits and quality")
+    return {"calibration": raw, "residual_frac": cal.residual_frac,
+            "speedup": cal.speedup, "bench_rows": rows,
+            "bench_s": bench_s, "launches": launches, "summary": summary,
+            "same_hits_and_quality": same, "ttft_speedup": speedup,
+            "wall_s": wall_s}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "CUDA card")
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.decode_attn import kernel as decode_kernel
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.decode_attn import ref as decode_ref
+    from repro_torch.kernels.fused_prefill import kernel as fused_kernel
+    from repro_torch.kernels.fused_prefill import ops as fused_ops
+    from repro_torch.kernels.fused_prefill import ref as fused_ref
     from repro_torch.kernels.kivi import kernel, ref
     from repro_torch.kernels.kivi.ref import Quantized
+    from repro_torch.kernels.prefill_attn import kernel as flash_kernel
+    from repro_torch.kernels.prefill_attn import ops as flash_ops
+    from repro_torch.kernels.prefill_attn import ref as flash_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -291,21 +629,37 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    print("[1/3] build")
-    shutil.rmtree(kernel.BUILD_DIR, ignore_errors=True)
+    print("[1/4] build")
+    attn_kernels = {"decode_attn": decode_kernel,
+                    "fused_prefill": fused_kernel,
+                    "flash_attention": flash_kernel}
+    libs = [kernel.LIBRARY] + [m.LIBRARY for m in attn_kernels.values()]
+    for lib in libs:
+        shutil.rmtree(lib.build_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    lib, log = kernel.build()
+    built = build_all(libs)
     build_s = time.perf_counter() - t0
-    print(f"  built {lib.relative_to(ROOT)} in {build_s:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print(f"  built {len(built)} libraries in parallel in {build_s:.1f} s")
+    for path, log in built:
+        print(f"  {path.relative_to(ROOT)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
 
-    print("[2/3] kernels against the plain version (bit-equal)")
+    print("[2/4] kernels against the plain version")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
+    attn_rows = {
+        "decode_attn": phase_decode_attn(decode_ops, decode_ref),
+        "fused_prefill": phase_fused_prefill(fused_ops, fused_ref),
+        "flash_attention": phase_flash_attention(flash_ops, flash_ref),
+    }
 
-    print("[3/3] serving full-width adaptcache-8b through build_engine")
-    summary, launches = phase_serving(kernel)
+    print("[3/4] serving full-width adaptcache-8b through build_engine")
+    summary, launches, wall_s, serving = phase_serving()
+
+    print("[4/4] fused compute: kernel_bench calibration, then serving "
+          "priced with it")
+    fused = phase_fused(attn_kernels, summary, serving)
 
     entries = []
     for op in ("quantize", "dequantize"):
@@ -325,13 +679,34 @@ def main() -> int:
                 "bound_by": row[f"{op}_bound_by"],
                 "library_ms": None,
             })
+    for kname, (rows, err) in attn_rows.items():
+        # the main path's case: 4-bit KIVI prefix; f32 flash attention
+        row = rows[0] if kname == "flash_attention" else next(
+            r for r in rows if r["bits"] == MAIN_BITS)
+        entries.append({
+            "name": kname,
+            "route": "cuda",
+            "source": SOURCES[kname],
+            "replaces": REPLACES[kname],
+            "launches": fused["launches"][kname],
+            "max_abs_err": err,
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms"),
+        })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "device": name, "torch": torch.__version__,
         "build_s": build_s, "kernel_rows": kernel_rows,
-        "kernels": entries, "summary": summary, "launches": launches},
+        "attention_rows": {k: v[0] for k, v in attn_rows.items()},
+        "kernels": entries, "summary": summary, "launches": launches,
+        "engine_wall_s": wall_s, "fused": fused},
         indent=1, default=float))
+    (out_dir / "fused_calibration.json").write_text(
+        json.dumps(fused["calibration"], indent=2))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,4 +1,4 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points and kernel ops."""
 from __future__ import annotations
 
 from typing import Union
@@ -15,3 +15,13 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
         raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not "
                            "available")
     return dev
+
+
+def on_cpu(t: torch.Tensor, what: str) -> bool:
+    """Whether ``t`` takes a kernel's plain version: True on the CPU, False
+    on CUDA (the hand-written kernel); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or the CPU, not {t.device}")
+    return False

@@ -13,22 +13,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import on_cpu
 from repro_torch.kernels.kivi import kernel as _k
 from repro_torch.kernels.kivi import ref as _r
 from repro_torch.kernels.kivi.ref import Quantized, compressed_nbytes  # noqa: F401
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"KIVI runs on CUDA or the CPU, not {t.device}")
-    return False
-
-
 def quantize(x: torch.Tensor, bits: int, group_size: int,
              axis: int) -> Quantized:
-    if _on_cpu(x):
+    if on_cpu(x, "KIVI"):
         return _r.quantize_ref(x, bits, group_size, axis)
     packed, scale, zero = _k.quantize(x.to(torch.float32).contiguous(),
                                       bits, group_size, axis)
@@ -37,7 +30,7 @@ def quantize(x: torch.Tensor, bits: int, group_size: int,
 
 
 def dequantize(qt: Quantized, out_dtype=torch.float32) -> torch.Tensor:
-    if _on_cpu(qt.packed):
+    if on_cpu(qt.packed, "KIVI"):
         return _r.dequantize_ref(qt, out_dtype)
     x = _k.dequantize(qt.packed, qt.scale, qt.zero, qt.bits, qt.group_size,
                       qt.axis, qt.orig_dim)

@@ -127,8 +127,10 @@ def main(argv=None) -> int:
                          "and HBM-bound attention terms read packed "
                          "bytes (kernels/fused_prefill)")
     ap.add_argument("--fused-calibration", default="",
-                    help="path to a kernel_bench fused-calibration JSON "
-                         "(experiments/fused_calibration.json); sets the "
+                    help="path to a fused-calibration JSON written by the "
+                         "port's kernel_bench (python -m "
+                         "repro_torch.launch.kernel_bench; default "
+                         "experiments/torch/fused_calibration.json); sets the "
                          "residual decompress fraction from measurement "
                          "instead of the ideal-fusion default of 0")
     ap.add_argument("--sanitize", action="store_true",

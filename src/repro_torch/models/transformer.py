@@ -119,8 +119,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
     check_supported(cfg)
     if kv_bits < 16:
         raise NotImplementedError(
-            "the packed-uint8 decode cache is ported with the decode_attn "
-            "kernel (ROADMAP §B3)")
+            "the packed-uint8 quantized decode cache is not ported yet "
+            "(ROADMAP §A10)")
     kv = attn_lib.init_cache(cfg, batch, capacity, _dtype(cfg.dtype), device,
                              lead=(cfg.n_layers,))
     return {"prefix": [], "stack": [{"self": kv}]}

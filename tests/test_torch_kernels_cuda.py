@@ -1,0 +1,118 @@
+"""The port's attention kernels against their plain versions on the card.
+
+Every test here is marked ``cuda`` and skips where there is no CUDA card.
+This file imports no JAX, so on a machine with a card and without JAX it
+runs on its own:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+It also holds the input makers that the CPU parity tests
+(``test_torch_{decode_attn,fused_prefill,prefill_attn}.py``) share. The
+tolerance, rtol 1e-4 / atol 2e-4, is the reference's own kernel tolerance
+(``tests/test_kernels_fused_prefill.py``): the kernels sum in another order
+than the plain versions, in f32 throughout.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.decode_attn import ops as decode_ops
+from repro_torch.kernels.fused_prefill import ops as fused_ops
+from repro_torch.kernels.kivi import ref as tkivi
+from repro_torch.kernels.prefill_attn import ops as prefill_ops
+
+TOL = dict(rtol=1e-4, atol=2e-4)
+NAMES = ("k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero")
+
+
+def packed_planes(rng, p, t, hd, bits, kg, vg):
+    """KIVI-pack P random (T, hd) K and V planes in the kernel layout, as
+    CPU tensors (the port's quantizer; its codes equal the reference's)."""
+    k = torch.from_numpy(rng.randn(p * t, hd).astype(np.float32))
+    v = torch.from_numpy(rng.randn(p * t, hd).astype(np.float32))
+    kq = tkivi.quantize_ref(k, bits, kg, 0)
+    vq = tkivi.quantize_ref(v, bits, vg, 1)
+    return {"k_packed": kq.packed.reshape(p, t // (8 // bits), hd),
+            "k_scale": kq.scale.reshape(p, t // kg, hd),
+            "k_zero": kq.zero.reshape(p, t // kg, hd),
+            "v_packed": vq.packed.reshape(p, t, -1),
+            "v_scale": vq.scale.reshape(p, t, -1),
+            "v_zero": vq.zero.reshape(p, t, -1)}
+
+
+def lengths(kind: str, p: int, t: int) -> np.ndarray:
+    n = {"full": [t] * p, "partial": [t // 2 + 7, 1, t - 3][:p] + [5] * p,
+         "zero": [0] * p}[kind][:p]
+    return np.asarray(n, np.int32).reshape(p, 1)
+
+
+def qkv(seed, b, s, h, kv, hd):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, s, h, hd).astype(np.float32),
+            rng.randn(b, s, kv, hd).astype(np.float32),
+            rng.randn(b, s, kv, hd).astype(np.float32))
+
+
+def chunk(rng, p, c, hd):
+    return tuple(rng.randn(p, c, hd).astype(np.float32) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_decode_attn_matches_plain():
+    """On the card: the CUDA kernel against the plain version, over bits,
+    groups, row counts and valid lengths (``chip_smoke.py`` repeats this
+    at full width)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(10)
+    for bits in (8, 4, 2):
+        for g, gq in ((32, 4), (64, 8), (64, 12)):
+            p, t, hd = 3, 320, 128
+            q = torch.from_numpy(rng.randn(p, gq, hd).astype(np.float32))
+            packs = packed_planes(rng, p, t, hd, bits, g, g)
+            for kind in ("full", "partial", "zero"):
+                cur = torch.from_numpy(lengths(kind, p, t))
+                want = decode_ops.decode_attention_planes(
+                    q, *(packs[n] for n in NAMES), cur, bits=bits,
+                    k_group=g, v_group=g)
+                got = decode_ops.decode_attention_planes(
+                    q.cuda(), *(packs[n].cuda() for n in NAMES), cur.cuda(),
+                    bits=bits, k_group=g, v_group=g)
+                torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.cuda
+def test_fused_prefill_matches_plain():
+    """On the card: the CUDA kernel against the plain version over bits,
+    groups, chunk sizes (ragged tiles included) and valid lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(15)
+    for bits in (8, 4, 2):
+        for g, c in ((32, 16), (64, 32), (64, 45)):
+            p, t, hd = 3, 320, 128
+            q, kc, vc = (torch.from_numpy(a) for a in chunk(rng, p, c, hd))
+            packs = packed_planes(rng, p, t, hd, bits, g, g)
+            for kind in ("full", "partial", "zero"):
+                cur = torch.from_numpy(lengths(kind, p, t))
+                want = fused_ops.chunk_prefill_planes(
+                    q, *(packs[n] for n in NAMES), kc, vc, cur, bits=bits,
+                    k_group=g, v_group=g)
+                got = fused_ops.chunk_prefill_planes(
+                    q.cuda(), *(packs[n].cuda() for n in NAMES), kc.cuda(),
+                    vc.cuda(), cur.cuda(), bits=bits, k_group=g, v_group=g)
+                torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_matches_plain():
+    """On the card: the CUDA kernel against the plain version, f32 and
+    bf16, GQA and ragged lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for shape in ((2, 96, 4, 2, 64), (1, 301, 8, 2, 128), (1, 64, 4, 4, 16)):
+        for tdt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(a).to(tdt) for a in qkv(24, *shape))
+            want = prefill_ops.causal_attention(q, k, v)
+            got = prefill_ops.causal_attention(q.cuda(), k.cuda(), v.cuda())
+            torch.testing.assert_close(got.cpu(), want, **TOL)
