@@ -7,10 +7,11 @@ Needs one CUDA card, ``nvcc`` and the repo's ``src/`` beside this file; it
 imports nothing of JAX and nothing of the JAX package. Phases, each of which
 stops the run with a non-zero exit when it fails:
 
-1. build   — print the card and its power limit; build the four CUDA
+1. build   — print the card and its power limit; build the five CUDA
              libraries (``kivi``, ``decode_attn``, ``fused_prefill``,
-             ``flash_attn`` under ``src/repro_torch/kernels/*/csrc/``), one
-             ``nvcc`` each, all started together.
+             ``flash_attn``, ``selective_scan`` under
+             ``src/repro_torch/kernels/*/csrc/``), one ``nvcc`` each, all
+             started together.
 2. kernels — at full-width adaptcache-8b shapes, each kernel against its
              plain torch version (``ref.py``) on the same inputs on the card:
              KIVI quantize/dequantize bit-equal on a (32*512, 1024) f32
@@ -25,7 +26,10 @@ stops the run with a non-zero exit when it fails:
              plain version, its bound and, for flash_attention, PyTorch's
              ``scaled_dot_product_attention`` in f32 (TF32 off); the
              attention kernels and their plain versions also as device time
-             (CUDA-graph replays, without the host's share).
+             (CUDA-graph replays, without the host's share). The selective
+             scan at full-width falcon-mamba-7b shapes (D 8192, N 16):
+             (B 1, S 640), (B 1, S 4096) and (B 2, S 577, h0 != 0), y and hT
+             within rtol 1e-4 / atol 1e-4, timed the same way.
 3. serving — full-width adaptcache-8b (32 layers, d_model 4096, bf16,
              seeded random weights, ~16 GB) behind ``build_engine`` with the
              fixed KIVI policy, so every insert compresses and every hit
@@ -45,6 +49,22 @@ stops the run with a non-zero exit when it fails:
              summary must be complete and finite, the residual in [0, 1],
              and where hits and quality equal phase 3's, the mean TTFT no
              higher.
+5. mamba   — phase 3-4's model is freed; full-width falcon-mamba-7b (64
+             Mamba-1 layers, d_model 4096, d_inner 8192, d_state 16, bf16,
+             ~7.0 B seeded params) serves phase 3's workload through
+             ``build_engine``. The selective-scan and KIVI counters are
+             zeroed just before ``engine.process`` and read just after: the
+             scan must have launched a positive multiple of 64 times (one a
+             layer a prefill) and KIVI quantize at least once. No request
+             hits: the reference sizes its tiers from ``kv_bytes_per_token``,
+             which counts attention layers only, so on this model they hold
+             1.5 and 6 bytes. So a real prefill's ``ssm``/``conv`` state is
+             compressed through the kernel (at 4 bits and at the served
+             rate's bits) and decompressed, bit-equal to the plain version,
+             and generation from the decompressed state must answer. The
+             decode step must agree with the prefill in f32 (the same
+             weights widened), within a relative logit error of 1e-4; the
+             bf16 error is printed beside it.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Measurements also go to
@@ -53,6 +73,8 @@ The measured fused calibration goes beside it (``fused_calibration.json``).
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -79,24 +101,35 @@ RATE = 0.16
 # f32 operations per element, counted from the kernels' source
 QUANT_OPS = 9                # min, max, sub, div, rint, 2 clamps, shift, or
 DEQUANT_OPS = 5              # shift, and, convert, fma (2)
+MAMBA_ARCH = "falcon-mamba-7b"
 REPLACES = {"quantize": "src/repro/kernels/kivi/kernel.py:71",
             "dequantize": "src/repro/kernels/kivi/kernel.py:99",
             "decode_attn": "src/repro/kernels/decode_attn/kernel.py:133",
             "fused_prefill": "src/repro/kernels/fused_prefill/kernel.py:127",
-            "flash_attention": "src/repro/kernels/prefill_attn/kernel.py:73"}
+            "flash_attention": "src/repro/kernels/prefill_attn/kernel.py:73",
+            "selective_scan": "src/repro/kernels/mamba_scan/kernel.py:76"}
 SOURCE = "src/repro_torch/kernels/kivi/csrc/kivi.cu"
 SOURCES = {"decode_attn": "src/repro_torch/kernels/decode_attn/csrc/"
                           "decode_attn.cu",
            "fused_prefill": "src/repro_torch/kernels/fused_prefill/csrc/"
                             "fused_prefill.cu",
            "flash_attention": "src/repro_torch/kernels/prefill_attn/csrc/"
-                              "flash_attn.cu"}
+                              "flash_attn.cu",
+           "selective_scan": "src/repro_torch/kernels/mamba_scan/csrc/"
+                             "selective_scan.cu"}
 # full-width adaptcache-8b: 32 query heads over 8 KV heads, head dim 128,
 # KIVI group 64; decode (P planes, Gq rows, T tokens), fused (P planes,
 # C-token chunk, T-token prefix), flash (B, S, H, Kv)
 DECODE = dict(p=8, gq=4, t=4096, hd=128, group=64)
 FUSED = dict(p=32, c=32, t=4096, hd=128, group=64)
 FLASH = dict(b=1, s=4096, h=32, kv=8, hd=128)
+# full-width falcon-mamba-7b: d_inner 8192, d_state 16; the first case is
+# the main path's (a 384-640-token context), the third ragged and batched
+SCAN = (dict(b=1, s=640, d=8192, n=16, h0=0.0),
+        dict(b=1, s=4096, d=8192, n=16, h0=0.0),
+        dict(b=2, s=577, d=8192, n=16, h0=0.1))
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's kernel-vs-ref
+DECODE_TOL_F32 = 1e-4   # the port's f32 logit tolerance (CPU parity tests)
 
 
 def fail(msg: str) -> None:
@@ -169,16 +202,19 @@ def attention_bound(n_bytes: float, flops: float) -> dict:
             "f32_core_ms": flops / F32_OPS * 1e3}
 
 
-def close_err(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def close_err(what: str, got: torch.Tensor, want: torch.Tensor,
+              tol: dict = TOL) -> float:
     """Max abs error of a kernel against its plain version; fails outside
-    rtol 1e-4 / atol 2e-4 or on a non-finite value."""
+    ``tol`` (rtol 1e-4 / atol 2e-4 unless given) or on a non-finite
+    value."""
     torch.cuda.synchronize()
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         fail(f"{what}: shape {tuple(got.shape)} (want {tuple(want.shape)}) "
              "or non-finite values")
-    if not torch.allclose(got, want, **TOL):
-        fail(f"{what}: differs from the plain version beyond rtol 1e-4 / "
-             f"atol 2e-4 (max abs err {float((got - want).abs().max()):.3g})")
+    if not torch.allclose(got, want, **tol):
+        fail(f"{what}: differs from the plain version beyond rtol "
+             f"{tol['rtol']:g} / atol {tol['atol']:g} (max abs err "
+             f"{float((got - want).abs().max()):.3g})")
     return float((got - want).abs().max())
 
 
@@ -339,6 +375,54 @@ def phase_flash_attention(ops, ref):
     return rows, worst
 
 
+def scan_inputs(case: dict, seed: int):
+    """(dt, x, bs, cs, a, h0) on the card, made with numpy as the
+    reference's kernel test makes them (dt = |N(0, 1)| / 10, a =
+    -|N(0, 1)|; h0 N(0, 1) times the case's scale)."""
+    rng = np.random.RandomState(seed)
+    b, s, d, n = case["b"], case["s"], case["d"], case["n"]
+    arrays = (np.abs(rng.randn(b, s, d)).astype(np.float32) * 0.1,
+              rng.randn(b, s, d).astype(np.float32),
+              rng.randn(b, s, n).astype(np.float32),
+              rng.randn(b, s, n).astype(np.float32),
+              -np.abs(rng.randn(d, n)).astype(np.float32),
+              rng.randn(b, d, n).astype(np.float32) * case["h0"])
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+def phase_selective_scan(ops, ref):
+    """The scan against its plain version (a sequential loop over time) at
+    each case of ``SCAN``, then timed: device time (CUDA-graph replays) and
+    per call (events), beside the plain version and the bound."""
+    rows, worst = [], 0.0
+    for i, case in enumerate(SCAN):
+        b, s, d, n = case["b"], case["s"], case["d"], case["n"]
+        args = scan_inputs(case, seed=40 + i)
+        y, h_t = ops.selective_scan(*args)
+        y_ref, h_ref = ref.selective_scan_ref(*args)
+        for what, got, want in (("y", y, y_ref), ("hT", h_t, h_ref)):
+            worst = max(worst, close_err(f"selective_scan {case} {what}",
+                                         got, want, SCAN_TOL))
+        n_bytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n)
+        t, by = bound_ms(n_bytes, 7 * b * s * d * n)
+        kern = lambda: ops.selective_scan(*args)
+        plain = lambda: ref.selective_scan_ref(*args)
+        row = {"shape": dict(case), "ms": device_ms(kern, calls=10),
+               "plain_ms": device_ms(plain, calls=1),
+               "call_ms": time_ms(kern, reps=20),
+               "plain_call_ms": time_ms(plain, reps=2, warmup=1),
+               "bound_ms": t, "bound_by": by, "bytes": n_bytes,
+               "f32_ops_ms": 7 * b * s * d * n / F32_OPS * 1e3,
+               "exps": b * s * d * n, "library_ms": None}
+        rows.append(row)
+        print(f"  selective_scan (B, S, D, N)=({b}, {s}, {d}, {n}), h0 "
+              f"scale {case['h0']}: y and hT within rtol 1e-4 / atol 1e-4; "
+              f"device {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+              f"bound {t:.4f} by {by}); per call {row['call_ms']:.4f} ms "
+              f"(plain {row['plain_call_ms']:.4f})")
+    return rows, worst
+
+
 def kv_matrix(rows: int, cols: int, bits: int, seed: int) -> torch.Tensor:
     """K/V-like values with the cases that test rounding: a spread of
     scales, constant groups (scale 0) and, where the top code allows it,
@@ -420,11 +504,13 @@ def phase_kernels(kernel, ref, Quantized):
     return results, worst
 
 
-def serve(runner, cfg, n_active: int, **engine_kw):
+def serve(runner, cfg, n_active: int, kernels=(), want_hits: bool = True,
+          **engine_kw):
     """Serve the fixed workload (one context per task, ~8 s of Poisson
     requests, seeded) through ``build_engine`` with the fixed KIVI policy,
-    and check the summary. Returns (summary, results, contexts, wall
-    seconds of ``engine.process``, the KIVI launches during it)."""
+    and check the summary. Returns (summary, results, requests, contexts,
+    wall seconds of ``engine.process``, the launches of the KIVI kernels
+    and of the kernel modules in ``kernels`` during it)."""
     from repro_torch.kernels.kivi import kernel as kivi_kernel
     from repro_torch.serving.baselines import build_engine
     from repro_torch.serving.engine import summarize
@@ -438,23 +524,27 @@ def serve(runner, cfg, n_active: int, **engine_kw):
         rig = build_engine(runner, contexts, cfg, n_active,
                            policy=("kivi", RATE), dram_entries=1.5,
                            ssd_entries=6.0, ssd_root=ssd_root, **engine_kw)
-        for k in kivi_kernel.LAUNCHES:
-            kivi_kernel.LAUNCHES[k] = 0
+        counters = [kivi_kernel.LAUNCHES] + [m.LAUNCHES for m in kernels]
+        for c in counters:
+            for k in c:
+                c[k] = 0
         t0 = time.perf_counter()
         results = rig.engine.process(requests)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = dict(kivi_kernel.LAUNCHES)
+        launches = {k: n for c in counters for k, n in c.items()}
     summary = summarize(results, selector_stats=rig.controller.selector.stats)
     print(f"  {len(contexts)} contexts of "
           f"{[len(c.tokens) for c in contexts]} tokens, {len(requests)} "
           f"requests, engine.process {wall_s:.2f} s wall")
-    check_summary(summary, results, len(requests))
-    return summary, results, contexts, wall_s, launches
+    check_summary(summary, results, len(requests), want_hits)
+    return summary, results, requests, contexts, wall_s, launches
 
 
-def check_summary(summary, results, n_requests: int) -> None:
-    """Complete, finite, answered, and the cache served hits."""
+def check_summary(summary, results, n_requests: int,
+                  want_hits: bool = True) -> None:
+    """Complete, finite, answered, and (``want_hits``) the cache served
+    hits."""
     if summary.get("n") != n_requests or len(results) != n_requests:
         fail(f"summary counts {summary.get('n')} of {n_requests} requests")
     bad = [k for k, v in summary.items()
@@ -463,7 +553,7 @@ def check_summary(summary, results, n_requests: int) -> None:
         fail(f"non-finite summary values: {bad}")
     if not 0.0 <= summary["quality_mean"] <= 1.0:
         fail(f"quality_mean {summary['quality_mean']} outside [0, 1]")
-    if summary["hit_rate"] <= 0.0:
+    if want_hits and summary["hit_rate"] <= 0.0:
         fail("no request hit the cache: decompress never served")
     if any(len(r.answer) == 0 for r in results):
         fail("a request produced no answer tokens")
@@ -489,7 +579,7 @@ def phase_serving():
           f"{time.perf_counter() - t0:.1f} s")
     runner = ModelRunner(model, params, capacity=1024)
     n_active = model.active_param_count()
-    summary, _, contexts, wall_s, launches = serve(runner, cfg, n_active)
+    summary, _, _, contexts, wall_s, launches = serve(runner, cfg, n_active)
     print("  summary (TTFT is simulated on the reference's A100 TimeModel, "
           "not measured on this card):")
     for k, v in summary.items():
@@ -524,13 +614,8 @@ def phase_serving():
           f"({on_card.meta['bits']} bits, rate {on_card.rate:.4f})")
 
     # the decode step against the prefill on the same tokens (bf16)
-    toks = torch.as_tensor(contexts[0].tokens[:64], device="cuda")[None]
-    want, _ = model.prefill(params, {"tokens": toks}, capacity=128)
-    _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, capacity=128)
-    got, _ = model.decode_step(params, cache, 63, toks[:, -1:])
-    want, got = want.float()[0, -1], got.float()[0, -1]
-    rel = float((want - got).abs().max() / want.abs().max())
-    if not (torch.isfinite(got).all() and rel < 5e-2):
+    rel = decode_vs_prefill(model, params, contexts[0].tokens)
+    if not rel < 5e-2:
         fail(f"decode step disagrees with prefill: max rel err {rel:.3g}")
     print(f"  decode step vs prefill logits (bf16): max rel err {rel:.3g}")
     return summary, launches, wall_s, (runner, cfg, n_active)
@@ -580,7 +665,7 @@ def phase_fused(attn_kernels, summary3, serving):
           f" speedup {cal.speedup:.3f}x")
 
     runner, cfg, n_active = serving
-    summary, _, _, wall_s, _ = serve(runner, cfg, n_active,
+    summary, _, _, _, wall_s, _ = serve(runner, cfg, n_active,
                                      fused_compute=True,
                                      fused_residual_frac=cal.residual_frac)
     print("  phase 3 (profiled decompress) vs fused pricing at the measured "
@@ -602,6 +687,135 @@ def phase_fused(attn_kernels, summary3, serving):
             "wall_s": wall_s}
 
 
+def decode_vs_prefill(model, params, tokens) -> float:
+    """Max relative error of the decode step's logits on the last of 64
+    tokens (from the prefill of the first 63) against the prefill of all
+    64; infinite when the decode step gives a non-finite value."""
+    toks = torch.as_tensor(tokens[:64], device="cuda")[None]
+    want, _ = model.prefill(params, {"tokens": toks}, capacity=128)
+    _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, capacity=128)
+    got, _ = model.decode_step(params, cache, 63, toks[:, -1:])
+    want, got = want.float()[0, -1], got.float()[0, -1]
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    return float((want - got).abs().max() / want.abs().max())
+
+
+def widened(tree):
+    """A param tree with every leaf copied to f32."""
+    if isinstance(tree, dict):
+        return {k: widened(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [widened(v) for v in tree]
+    return tree.to(torch.float32)
+
+
+def phase_mamba(scan_kernel):
+    """Full-width falcon-mamba-7b served through ``build_engine``, its
+    kernels counted; then the state's KIVI round trip through the kernel
+    and the decode step against the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import KIVICompression
+    from repro_torch.models import build_model
+    from repro_torch.serving.runner import ModelRunner
+
+    cfg = get_config(MAMBA_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    if n_params != model.active_param_count():
+        fail(f"{MAMBA_ARCH}: {n_params} params initialised, the config "
+             f"counts {model.active_param_count()}")
+    print(f"  {MAMBA_ARCH}: {cfg.n_layers} Mamba-1 layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, d_state "
+          f"{cfg.ssm.d_state}, dt_rank {cfg.resolved_dt_rank}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}: {n_params / 1e9:.3f} B "
+          f"params, init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    runner = ModelRunner(model, params, capacity=1024)
+    summary, results, requests, contexts, wall_s, launches = serve(
+        runner, cfg, n_params, kernels=(scan_kernel,), want_hits=False)
+    print("  summary (TTFT is simulated on the reference's A100 TimeModel, "
+          "not measured on this card):")
+    for k, v in summary.items():
+        print(f"    {k:28s} {v}")
+    print(f"  kernel launches during engine.process: {launches}")
+    n_scan = launches["selective_scan"]
+    if n_scan <= 0 or n_scan % cfg.n_layers:
+        fail(f"selective_scan launched {n_scan} times during "
+             f"engine.process: want a positive multiple of {cfg.n_layers}")
+    if launches["quantize_k"] + launches["quantize_v"] <= 0:
+        fail("KIVI quantize never launched during engine.process")
+    print(f"  hit rate {summary['hit_rate']}: the reference sizes its tiers "
+          "from kv_bytes_per_token(), which counts attention layers only, "
+          "so on this model each tier holds 1.5 or 6 bytes and every state "
+          "entry is evicted; the round trip below checks decompression")
+
+    # a real prefill's state through the kernel == the plain version's
+    ctx = contexts[0]
+    kv = runner.prefill_entry(ctx.tokens)
+    shapes = {"ssm": (cfg.n_layers, cfg.d_inner, cfg.ssm.d_state),
+              "conv": (cfg.n_layers, cfg.ssm.d_conv - 1, cfg.d_inner)}
+    for name, shape in shapes.items():
+        if kv[name].shape != shape or not np.isfinite(kv[name]).all():
+            fail(f"prefill state {name}: shape {kv[name].shape}, want "
+                 f"{shape}, finite values")
+    card, cpu = KIVICompression(device="cuda"), KIVICompression(device="cpu")
+    round_trips, back = {}, None
+    for bits in (4, None):                 # 4 bits, then the served rate's
+        on_card = card.compress(kv, RATE, bits=bits)
+        used = on_card.meta["bits"]
+        if used in round_trips:
+            continue
+        on_cpu = cpu.compress(kv, RATE, bits=bits)
+        for key, a in on_card.arrays.items():
+            if not np.array_equal(a, on_cpu.arrays[key]):
+                fail(f"compress of a real state ({used} bits): {key} "
+                     "differs between the kernel and the plain version")
+        back_card, back_cpu = card.decompress(on_card), cpu.decompress(on_cpu)
+        for name in shapes:
+            if not np.array_equal(back_card[name], back_cpu[name]):
+                fail(f"decompress of a real state ({used} bits): {name} "
+                     "differs between the kernel and the plain version")
+        err = {name: float(np.abs(back_card[name] - kv[name]).max())
+               for name in shapes}
+        round_trips[used] = {"rate": on_card.rate, "max_abs_err": err}
+        back = back_card if used == 4 else back
+        print(f"  real {len(ctx.tokens)}-token state, {used} bits (rate "
+              f"{on_card.rate:.4f}): compress and decompress bit-equal to "
+              f"the plain version; max abs error of the round trip "
+              f"ssm {err['ssm']:.4g}, conv {err['conv']:.4g}")
+    req = next(r for r in requests if r.context_key == ctx.key)
+    answer = runner.generate_from_kvdata(back, len(ctx.tokens), req.question,
+                                         req.max_new_tokens)
+    if len(answer) != req.max_new_tokens:
+        fail(f"generation from the decompressed state gave {len(answer)} "
+             f"of {req.max_new_tokens} answer tokens")
+    print(f"  generation from the 4-bit state: {len(answer)} answer tokens")
+    # the decode step against the prefill, held in f32 on the same
+    # weights: in bf16, rounding that depends on the prefill's length
+    # (cuBLAS picks its algorithm by shape) grows through 64 random layers
+    # to several percent of the logits, so bf16 is reported, not held
+    rel16 = decode_vs_prefill(model, params, ctx.tokens)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = widened(params)
+    rel32 = decode_vs_prefill(build_model(cfg32), params32, ctx.tokens)
+    del params32
+    torch.cuda.empty_cache()
+    if not rel32 < DECODE_TOL_F32:
+        fail(f"decode step disagrees with prefill in f32: max rel err "
+             f"{rel32:.3g} (limit {DECODE_TOL_F32:g})")
+    print(f"  decode step vs prefill logits: f32 (the same weights widened) "
+          f"max rel err {rel32:.3g}, within {DECODE_TOL_F32:g}; bf16 "
+          f"{rel16:.3g}")
+    return {"summary": summary, "launches": launches, "wall_s": wall_s,
+            "n_params": n_params, "round_trips": round_trips,
+            "decode_rel_err_f32": rel32, "decode_rel_err_bf16": rel16,
+            "answer_tokens": len(answer)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -615,6 +829,9 @@ def main() -> int:
     from repro_torch.kernels.fused_prefill import ref as fused_ref
     from repro_torch.kernels.kivi import kernel, ref
     from repro_torch.kernels.kivi.ref import Quantized
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.kernels.prefill_attn import kernel as flash_kernel
     from repro_torch.kernels.prefill_attn import ops as flash_ops
     from repro_torch.kernels.prefill_attn import ref as flash_ref
@@ -629,11 +846,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    print("[1/4] build")
+    print("[1/5] build")
     attn_kernels = {"decode_attn": decode_kernel,
                     "fused_prefill": fused_kernel,
                     "flash_attention": flash_kernel}
-    libs = [kernel.LIBRARY] + [m.LIBRARY for m in attn_kernels.values()]
+    libs = ([kernel.LIBRARY] + [m.LIBRARY for m in attn_kernels.values()]
+            + [scan_kernel.LIBRARY])
     for lib in libs:
         shutil.rmtree(lib.build_dir, ignore_errors=True)
     t0 = time.perf_counter()
@@ -646,20 +864,29 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
 
-    print("[2/4] kernels against the plain version")
+    print("[2/5] kernels against the plain version")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
-    attn_rows = {
+    timed_rows = {
         "decode_attn": phase_decode_attn(decode_ops, decode_ref),
         "fused_prefill": phase_fused_prefill(fused_ops, fused_ref),
         "flash_attention": phase_flash_attention(flash_ops, flash_ref),
+        "selective_scan": phase_selective_scan(scan_ops, scan_ref),
     }
 
-    print("[3/4] serving full-width adaptcache-8b through build_engine")
+    print("[3/5] serving full-width adaptcache-8b through build_engine")
     summary, launches, wall_s, serving = phase_serving()
 
-    print("[4/4] fused compute: kernel_bench calibration, then serving "
+    print("[4/5] fused compute: kernel_bench calibration, then serving "
           "priced with it")
     fused = phase_fused(attn_kernels, summary, serving)
+
+    print("[5/5] serving full-width falcon-mamba-7b through build_engine")
+    del serving                            # free adaptcache-8b's weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  adaptcache-8b freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
+          "GB left on the card")
+    mamba = phase_mamba(scan_kernel)
 
     entries = []
     for op in ("quantize", "dequantize"):
@@ -679,16 +906,19 @@ def main() -> int:
                 "bound_by": row[f"{op}_bound_by"],
                 "library_ms": None,
             })
-    for kname, (rows, err) in attn_rows.items():
-        # the main path's case: 4-bit KIVI prefix; f32 flash attention
-        row = rows[0] if kname == "flash_attention" else next(
-            r for r in rows if r["bits"] == MAIN_BITS)
+    for kname, (rows, err) in timed_rows.items():
+        # the main path's case: 4-bit KIVI prefix; f32 flash attention;
+        # the scan at (B 1, S 640)
+        row = rows[0] if kname in ("flash_attention", "selective_scan") \
+            else next(r for r in rows if r["bits"] == MAIN_BITS)
         entries.append({
             "name": kname,
             "route": "cuda",
             "source": SOURCES[kname],
             "replaces": REPLACES[kname],
-            "launches": fused["launches"][kname],
+            "launches": (mamba["launches"][kname]
+                         if kname == "selective_scan"
+                         else fused["launches"][kname]),
             "max_abs_err": err,
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -701,9 +931,9 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "device": name, "torch": torch.__version__,
         "build_s": build_s, "kernel_rows": kernel_rows,
-        "attention_rows": {k: v[0] for k, v in attn_rows.items()},
+        "timed_rows": {k: v[0] for k, v in timed_rows.items()},
         "kernels": entries, "summary": summary, "launches": launches,
-        "engine_wall_s": wall_s, "fused": fused},
+        "engine_wall_s": wall_s, "fused": fused, "mamba": mamba},
         indent=1, default=float))
     (out_dir / "fused_calibration.json").write_text(
         json.dumps(fused["calibration"], indent=2))

@@ -2,8 +2,10 @@
 
 ``params_from_numpy`` takes the JAX package's param pytree with its leaves
 turned into numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
-the port's params: the same tree, as torch tensors of the config's param
-dtype on ``device``. Both packages then compute on the same weights.
+the port's params: the same tree, as torch tensors on ``device``, each of
+its leaf's dtype (``transformer.param_dtype``: the config's param dtype,
+except the mamba leaves the reference keeps in f32). Both packages then
+compute on the same weights.
 """
 from __future__ import annotations
 
@@ -13,12 +15,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.layers import Params, _dtype
+from repro_torch.models.layers import Params
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> Params:
     dev = resolve_device(device)
-    dtype = _dtype(cfg.param_dtype)
     expected = transformer.param_shapes(cfg)
 
     def convert(want, got, path):
@@ -37,6 +38,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> Params:
         a = np.array(got, dtype=np.float32)          # a writable copy
         if a.shape != tuple(want):
             raise ValueError(f"{'/'.join(path)}: shape {a.shape} != {want}")
-        return torch.from_numpy(a).to(dev, dtype)
+        return torch.from_numpy(a).to(
+            dev, transformer.param_dtype(cfg, path[-1]))
 
     return convert(expected, tree, ())

@@ -1,0 +1,145 @@
+"""Mamba-1 selective-SSM block (falcon-mamba).
+
+Counterpart of ``repro.models.mamba``. The full-sequence path runs the
+selective scan through ``kernels/mamba_scan/ops.selective_scan`` (the
+reference runs the same recurrence as a ``lax.scan`` and names its Pallas
+kernel as the fast path of that scan); ``d_skip`` and the ``silu(z)`` gate
+stay outside the kernel, as in the reference's kernel test. Decode is the
+plain recurrent step.
+
+Decode keeps a fixed-size recurrent cache per layer:
+    conv: (B, d_conv - 1, d_inner)   the causal conv's tail window
+    ssm : (B, d_inner, d_state)      the SSM hidden state, f32
+The decode step updates both in place.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.models.layers import Params
+
+# leaves kept in f32 whatever the param dtype, as the reference does
+F32_LEAVES = frozenset({"a_log", "d_skip"})
+
+
+def param_shapes(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Params:
+    """The layer's parameter shapes, with ``lead`` (the stacked layer
+    groups) in front of each."""
+    s = cfg.ssm
+    d, d_in, r = cfg.d_model, cfg.d_inner, cfg.resolved_dt_rank
+    shapes = {"in_proj": (d, 2 * d_in), "conv_w": (s.d_conv, d_in),
+              "conv_b": (d_in,), "x_proj": (d_in, r + 2 * s.d_state),
+              "dt_proj": (r, d_in), "dt_bias": (d_in,),
+              "a_log": (d_in, s.d_state), "d_skip": (d_in,),
+              "out_proj": (d_in, d)}
+    return {k: tuple(lead) + v for k, v in shapes.items()}
+
+
+def init_mamba_leaf(gen: torch.Generator, cfg: ModelConfig, name: str,
+                    shape: Tuple[int, ...], dtype) -> torch.Tensor:
+    """Leaf ``name`` of a mamba block (``shape`` may lead with stacked
+    layer groups) on ``gen``'s device, with the reference's init scheme:
+    the three matrices N(0, 1/d_in), ``conv_w`` N(0, 1/d_conv), ``conv_b``
+    zeros, ``dt_bias`` the inverse softplus of U(0.001, 0.1), ``a_log =
+    log(1..N)`` and ``d_skip`` ones in f32. Random matrices are drawn one
+    layer at a time, so no f32 copy of a whole stack exists."""
+    dev = gen.device
+    if name in ("in_proj", "x_proj", "dt_proj", "out_proj", "conv_w"):
+        scale = (cfg.ssm.d_conv if name == "conv_w" else shape[-2]) ** -0.5
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for layer in out.view((-1,) + tuple(shape[-2:])):
+            layer.copy_(torch.randn(layer.shape, generator=gen, device=dev)
+                        * scale)
+        return out
+    if name == "dt_bias":
+        u = torch.rand(shape, generator=gen, device=dev)
+        dt = torch.clamp(u * 0.099 + 0.001, min=1e-4)
+        return torch.log(torch.expm1(dt)).to(dtype)
+    if name == "a_log":
+        n = torch.arange(1, cfg.ssm.d_state + 1, dtype=torch.float32,
+                         device=dev)
+        return torch.log(n).expand(shape).contiguous()
+    if name == "d_skip":
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+    return torch.zeros(shape, dtype=dtype, device=dev)       # conv_b
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device,
+                     lead: Tuple[int, ...] = ()) -> Params:
+    s = cfg.ssm
+    return {
+        "conv": torch.zeros(tuple(lead) + (batch, s.d_conv - 1, cfg.d_inner),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros(tuple(lead) + (batch, cfg.d_inner, s.d_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _ssm_params(p: Params, cfg: ModelConfig, xc: torch.Tensor):
+    """xc: (..., d_inner) post-conv activations -> (dt, B, C) selective
+    params, f32."""
+    n, r = cfg.ssm.d_state, cfg.resolved_dt_rank
+    proj = xc @ p["x_proj"]                                  # (..., r + 2n)
+    dt = proj[..., :r] @ p["dt_proj"] + p["dt_bias"]
+    dt = F.softplus(dt.to(torch.float32))                    # (..., d_inner)
+    b_sel = proj[..., r:r + n].to(torch.float32)
+    c_sel = proj[..., r + n:].to(torch.float32)
+    return dt, b_sel, c_sel
+
+
+def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              cache: Optional[Params] = None, decode: bool = False
+              ) -> Tuple[torch.Tensor, Params]:
+    """x: (B, S, d_model). Returns (out (B, S, d_model), cache).
+
+    Full sequence: the new cache is returned and ``cache`` (if given) is
+    only read, for the conv window and the initial state h0. Decode
+    (S == 1): ``cache`` is updated in place, after the new values are
+    computed from the old ones, and returned."""
+    s = cfg.ssm
+    b, seq, _ = x.shape
+    xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)              # (B, S, d_in)
+
+    if decode:
+        if seq != 1 or cache is None:
+            raise ValueError("decode takes one token and a cache")
+        window = torch.cat([cache["conv"], xs], dim=1)       # (B, c, d_in)
+        xc = torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
+        xc = F.silu(xc)[:, None]                             # (B, 1, d_in)
+        dt, b_sel, c_sel = _ssm_params(p, cfg, xc)
+        a = -torch.exp(p["a_log"])                           # (d_in, n)
+        da = torch.exp(dt[:, 0, :, None] * a)                # (B, d_in, n)
+        dbx = (dt[:, 0, :, None] * b_sel[:, 0, None, :]
+               * xc[:, 0, :, None].to(torch.float32))
+        h = cache["ssm"] * da + dbx
+        y = torch.einsum("bdn,bn->bd", h, c_sel[:, 0])
+        y = y + p["d_skip"] * xc[:, 0].to(torch.float32)
+        y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
+        cache["conv"].copy_(window[:, 1:])
+        cache["ssm"].copy_(h)
+        return y @ p["out_proj"], cache
+
+    # full sequence: causal depthwise conv, then the selective scan
+    pad = (torch.zeros((b, s.d_conv - 1, cfg.d_inner), dtype=xs.dtype,
+                       device=x.device)
+           if cache is None else cache["conv"])
+    padded = torch.cat([pad, xs], dim=1)                     # (B, S+c-1, d_in)
+    xc = sum(padded[:, i:i + seq] * p["conv_w"][i] for i in range(s.d_conv))
+    xc = F.silu(xc + p["conv_b"])                            # (B, S, d_in)
+
+    dt, b_sel, c_sel = _ssm_params(p, cfg, xc)               # (B, S, .)
+    a = -torch.exp(p["a_log"])                               # (d_in, n)
+    h0 = (torch.zeros((b, cfg.d_inner, s.d_state), dtype=torch.float32,
+                      device=x.device)
+          if cache is None else cache["ssm"])
+    y, h_t = scan_ops.selective_scan(dt, xc.to(torch.float32), b_sel, c_sel,
+                                     a, h0)
+    y = y + p["d_skip"] * xc.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z)
+    new_cache = {"conv": padded[:, -(s.d_conv - 1):], "ssm": h_t}
+    return y @ p["out_proj"], new_cache

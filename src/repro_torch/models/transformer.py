@@ -1,18 +1,22 @@
-"""Decoder-only LM with dense GQA attention and a gated MLP.
+"""Decoder-only LM: dense GQA attention with a gated MLP, or Mamba-1 blocks.
 
 Counterpart of ``repro.models.transformer`` for the dense family (the
-adaptcache-8b / Llama-3.1-8B shape and the other dense GQA configs). The
-parameter and cache trees keep the reference's layout, so a JAX param
-pytree carries across leaf for leaf (``convert.params_from_numpy``):
+adaptcache-8b / Llama-3.1-8B shape and the other dense GQA configs) and the
+pure-SSM family (falcon-mamba). The parameter and cache trees keep the
+reference's layout, so a JAX param pytree carries across leaf for leaf
+(``convert.params_from_numpy``):
 
   params: {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
-           "prefix": [], "stack": [block]}  — block leaves stacked on a
-           leading layer-group axis G = n_layers
-  cache : {"prefix": [], "stack": [{"self": {"k": (G,B,C,Kv,hd), "v": ...}}]}
+           "prefix": [], "stack": [block, ...]}  — one block per position
+           of the layer pattern, its leaves stacked on a leading
+           layer-group axis G; an attention block is {"ln1", "attn"[,
+           "ln2", "ffn"]}, a mamba block {"ln1", "mamba"}
+  cache : {"prefix": [], "stack": [{"self": {"k": (G,B,C,Kv,hd), "v"}}
+           or {"mamba": {"conv": (G,B,c-1,d_in), "ssm": (G,B,d_in,n)}}]}
 
 The reference scans over the stacked groups with ``lax.scan``; here a
 Python loop walks them, indexing views of the stacked tensors. Prefill and
-decode write K/V into the cache in place.
+decode write the cache in place.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import AttnKind, FFNKind, LayerKind, ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.layers import Params, _dtype, mlp_fwd, rmsnorm
 
 # the families whose layers this slice does not port yet (ROADMAP §A8)
@@ -34,12 +39,20 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: MLA attention is {_LATER}")
     if cfg.ffn_kind == FFNKind.MOE or cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE FFN is {_LATER}")
-    if any(k != LayerKind.ATTN for k in cfg.layer_kinds()):
-        raise NotImplementedError(f"{cfg.name}: Mamba layers are {_LATER}")
+    if any(k not in (LayerKind.ATTN, LayerKind.MAMBA)
+           for k in cfg.layer_kinds()):
+        raise NotImplementedError(f"{cfg.name}: cross-attention layers are "
+                                  f"{_LATER}")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder is {_LATER}")
     if cfg.n_patches:
         raise NotImplementedError(f"{cfg.name}: vision patches are {_LATER}")
+
+
+def _pattern(cfg: ModelConfig) -> Tuple[Tuple[LayerKind, ...], int]:
+    """(the layer kinds of one group, the number of stacked groups)."""
+    pattern, _ = cfg.block_group()
+    return pattern, cfg.n_layers // len(pattern)
 
 
 # ---------------------------------------------------------------------------
@@ -49,23 +62,42 @@ def check_supported(cfg: ModelConfig) -> None:
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree with shape tuples for leaves (no allocation)."""
     check_supported(cfg)
-    d, hd, g = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
-    attn = {"wq": (g, d, cfg.n_heads * hd), "wk": (g, d, cfg.n_kv_heads * hd),
-            "wv": (g, d, cfg.n_kv_heads * hd), "wo": (g, cfg.n_heads * hd, d)}
-    if cfg.qk_norm:
-        attn["q_norm"] = (g, hd)
-        attn["k_norm"] = (g, hd)
-    block: Params = {"ln1": (g, d), "attn": attn}
-    if cfg.ffn_kind != FFNKind.NONE:
-        block["ln2"] = (g, d)
-        block["ffn"] = {"wi_gate": (g, d, cfg.d_ff), "wi_up": (g, d, cfg.d_ff),
-                        "wo": (g, cfg.d_ff, d)}
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    pattern, g = _pattern(cfg)
+
+    def block(kind: LayerKind) -> Params:
+        if kind == LayerKind.MAMBA:
+            blk: Params = {"ln1": (g, d),
+                           "mamba": mamba_lib.param_shapes(cfg, (g,))}
+        else:
+            attn = {"wq": (g, d, cfg.n_heads * hd),
+                    "wk": (g, d, cfg.n_kv_heads * hd),
+                    "wv": (g, d, cfg.n_kv_heads * hd),
+                    "wo": (g, cfg.n_heads * hd, d)}
+            if cfg.qk_norm:
+                attn["q_norm"] = (g, hd)
+                attn["k_norm"] = (g, hd)
+            blk = {"ln1": (g, d), "attn": attn}
+        if cfg.ffn_kind != FFNKind.NONE:
+            blk["ln2"] = (g, d)
+            blk["ffn"] = {"wi_gate": (g, d, cfg.d_ff),
+                          "wi_up": (g, d, cfg.d_ff), "wo": (g, cfg.d_ff, d)}
+        return blk
+
     p: Params = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         p["lm_head"] = (d, cfg.vocab_size)
     p["prefix"] = []
-    p["stack"] = [block]
+    p["stack"] = [block(kind) for kind in pattern]
     return p
+
+
+def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The dtype of leaf ``name``: the config's param dtype, except the
+    mamba leaves the reference keeps in f32."""
+    if name in mamba_lib.F32_LEAVES:
+        return torch.float32
+    return _dtype(cfg.param_dtype)
 
 
 def _map_leaves(fn, tree, path: Tuple[str, ...] = ()):
@@ -89,11 +121,14 @@ def _is_norm(name: str) -> bool:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random init on ``gen``'s device, with the reference's scheme:
-    norms are ones, the embedding N(0, 0.02), every matrix N(0, 1/d_in)."""
+    norms are ones, the embedding N(0, 0.02), every attention and MLP
+    matrix N(0, 1/d_in); mamba leaves as ``mamba.init_mamba_leaf``."""
     dtype = _dtype(cfg.param_dtype)
 
     def init(path, shape):
         name = path[-1]
+        if "mamba" in path:
+            return mamba_lib.init_mamba_leaf(gen, cfg, name, shape, dtype)
         if _is_norm(name):
             return torch.ones(shape, dtype=dtype, device=gen.device)
         scale = 0.02 if name == "embed" else shape[-2] ** -0.5
@@ -121,30 +156,52 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
         raise NotImplementedError(
             "the packed-uint8 quantized decode cache is not ported yet "
             "(ROADMAP §A10)")
-    kv = attn_lib.init_cache(cfg, batch, capacity, _dtype(cfg.dtype), device,
-                             lead=(cfg.n_layers,))
-    return {"prefix": [], "stack": [{"self": kv}]}
+    dtype = _dtype(cfg.dtype)
+    pattern, g = _pattern(cfg)
+
+    def block(kind: LayerKind) -> Params:
+        if kind == LayerKind.MAMBA:
+            return {"mamba": mamba_lib.init_mamba_cache(cfg, batch, dtype,
+                                                        device, lead=(g,))}
+        return {"self": attn_lib.init_cache(cfg, batch, capacity, dtype,
+                                            device, lead=(g,))}
+
+    return {"prefix": [], "stack": [block(kind) for kind in pattern]}
 
 
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
 
-def _apply_block(bp: Params, cfg: ModelConfig, x, positions,
-                 cache_j: Optional[Params], cur_index, decode: bool):
-    """One layer. Decode writes its K/V row into ``cache_j`` in place;
-    prefill (a cache but no decode) copies its S rows into slots [0, S)."""
+def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
+                 positions, cache_j: Optional[Params], cur_index,
+                 decode: bool):
+    """One layer. Decode updates ``cache_j`` in place (an attention layer
+    writes its K/V row, a mamba layer its conv window and state); prefill
+    (a cache but no decode) copies its S K/V rows into slots [0, S), or a
+    mamba layer's final conv window and state."""
     h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    cj = None if cache_j is None else cache_j["self"]
-    if decode:
-        out, _ = attn_lib.attention_fwd(bp["attn"], cfg, h, positions,
-                                        cache=cj, cur_index=cur_index)
+    if kind == LayerKind.MAMBA:
+        cm = None if cache_j is None else cache_j["mamba"]
+        if decode:
+            out, _ = mamba_lib.mamba_fwd(bp["mamba"], cfg, h, cache=cm,
+                                         decode=True)
+        else:
+            out, new = mamba_lib.mamba_fwd(bp["mamba"], cfg, h)
+            if cm is not None:
+                cm["conv"].copy_(new["conv"])
+                cm["ssm"].copy_(new["ssm"])
     else:
-        out, kv = attn_lib.attention_fwd(bp["attn"], cfg, h, positions)
-        if cj is not None:
-            s = kv["k"].shape[1]
-            cj["k"][:, :s] = kv["k"].to(cj["k"].dtype)
-            cj["v"][:, :s] = kv["v"].to(cj["v"].dtype)
+        cj = None if cache_j is None else cache_j["self"]
+        if decode:
+            out, _ = attn_lib.attention_fwd(bp["attn"], cfg, h, positions,
+                                            cache=cj, cur_index=cur_index)
+        else:
+            out, kv = attn_lib.attention_fwd(bp["attn"], cfg, h, positions)
+            if cj is not None:
+                s = kv["k"].shape[1]
+                cj["k"][:, :s] = kv["k"].to(cj["k"].dtype)
+                cj["v"][:, :s] = kv["v"].to(cj["v"].dtype)
     x = x + out
     if cfg.ffn_kind != FFNKind.NONE:
         h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
@@ -154,12 +211,11 @@ def _apply_block(bp: Params, cfg: ModelConfig, x, positions,
 
 def _run_stack(params: Params, cfg: ModelConfig, x, positions,
                cache: Optional[Params], cur_index, decode: bool):
-    period = len(params["stack"])
-    n_groups = cfg.n_layers // period
+    pattern, n_groups = _pattern(cfg)
     for g in range(n_groups):
-        for j in range(period):
+        for j, kind in enumerate(pattern):
             cj = None if cache is None else _group(cache["stack"][j], g)
-            x = _apply_block(_group(params["stack"][j], g), cfg, x,
+            x = _apply_block(_group(params["stack"][j], g), cfg, kind, x,
                              positions, cj, cur_index, decode)
     return x
 
@@ -190,7 +246,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Process the full prompt; return (last-position logits, decode cache).
 
     K/V of the S prompt tokens land in zeroed capacity-C buffers at slots
-    [0, S) (C >= S)."""
+    [0, S) (C >= S); mamba layers keep their final conv window and state."""
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     if s > capacity:

@@ -1,11 +1,13 @@
 """ModelRunner: bridges the storage-layer KVData format and the model's
 decode-cache tree, and runs prefill / greedy generation.
 
-Counterpart of ``repro.serving.runner`` for the dense GQA models the port
-has (the MLA and SSM KVData arrays come with those families, ROADMAP §A8).
+Counterpart of ``repro.serving.runner`` for the dense GQA and the Mamba
+models the port has (the MLA KVData arrays come with that family, ROADMAP
+§A8).
 
 KVData layout (batch squeezed, numpy, storage-friendly):
   GQA :  {"k": (L_attn, T, Kv*hd), "v": (L_attn, T, Kv*hd)}
+  SSM :  {"ssm": (L_m, d_in, n), "conv": (L_m, c-1, d_in)}
   always: {"positions": (T_kept,)} after token dropping.
 
 The runner computes on the device its params live on.
@@ -18,7 +20,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.core.compression.base import KVData
 from repro_torch.models import Model
 
@@ -34,17 +36,56 @@ def _layer_cache_refs(cache, cfg: ModelConfig):
         yield i, kind, ("stack", j, g)
 
 
+def _host(xs: List[torch.Tensor]) -> np.ndarray:
+    """Per-layer device arrays as one f32 numpy stack: one device-to-host
+    copy per array, not one per layer."""
+    return torch.stack(xs).to(torch.float32).cpu().numpy()
+
+
 def cache_to_kvdata(cache, cfg: ModelConfig, n_tokens: int) -> KVData:
     """Extract a storable KVData from a (batch=1) cache tree."""
-    ks, vs = [], []
-    for _, _, (sect, j, g) in _layer_cache_refs(cache, cfg):
-        blk = cache[sect][j]["self"]
-        ks.append(blk["k"][g, 0, :n_tokens].reshape(n_tokens, -1))
-        vs.append(blk["v"][g, 0, :n_tokens].reshape(n_tokens, -1))
-    # one device-to-host copy per array, not one per layer
-    return {"k": torch.stack(ks).to(torch.float32).cpu().numpy(),
-            "v": torch.stack(vs).to(torch.float32).cpu().numpy(),
-            "positions": np.arange(n_tokens, dtype=np.int32)}
+    ks, vs, ssms, convs = [], [], [], []
+    for _, kind, (sect, j, g) in _layer_cache_refs(cache, cfg):
+        blk = cache[sect][j]
+        if kind == LayerKind.MAMBA:
+            ssms.append(blk["mamba"]["ssm"][g, 0])
+            convs.append(blk["mamba"]["conv"][g, 0])
+        else:
+            ks.append(blk["self"]["k"][g, 0, :n_tokens].reshape(n_tokens, -1))
+            vs.append(blk["self"]["v"][g, 0, :n_tokens].reshape(n_tokens, -1))
+    out: KVData = {}
+    if ks:
+        out["k"], out["v"] = _host(ks), _host(vs)
+    if ssms:
+        out["ssm"], out["conv"] = _host(ssms), _host(convs)
+    out["positions"] = np.arange(n_tokens, dtype=np.int32)
+    return out
+
+
+def write_kvdata(cache, kv: KVData, cfg: ModelConfig, lane: int,
+                 device) -> int:
+    """Write a KVData entry into batch lane ``lane`` of a cache tree, in
+    place: attention K/V into slots [0, n_kept), a mamba layer's state and
+    conv window whole (the reference's ``put_full``). Returns n_kept."""
+    n_kept = int(kv["positions"].shape[0]) if "positions" in kv else (
+        kv["k"].shape[1] if "k" in kv else 0)
+    hd = cfg.resolved_head_dim
+    dev = {name: torch.from_numpy(np.ascontiguousarray(kv[name])).to(device)
+           for name in ("k", "v", "ssm", "conv") if name in kv}
+    ai = mi = 0
+    for _, kind, (sect, j, g) in _layer_cache_refs(cache, cfg):
+        blk = cache[sect][j]
+        if kind == LayerKind.MAMBA:
+            blk["mamba"]["ssm"][g, lane] = dev["ssm"][mi]
+            blk["mamba"]["conv"][g, lane] = dev["conv"][mi]
+            mi += 1
+        else:
+            blk["self"]["k"][g, lane, :n_kept] = dev["k"][ai].reshape(
+                n_kept, -1, hd)
+            blk["self"]["v"][g, lane, :n_kept] = dev["v"][ai].reshape(
+                n_kept, -1, hd)
+            ai += 1
+    return n_kept
 
 
 def kvdata_to_cache(kv: KVData, cfg: ModelConfig, model: Model,
@@ -52,20 +93,11 @@ def kvdata_to_cache(kv: KVData, cfg: ModelConfig, model: Model,
     """Build a capacity-C batch=1 cache tree on ``device`` from stored
     KVData.
 
-    Returns (cache, n_kept) — kept rows occupy slots [0, n_kept)."""
-    n_kept = int(kv["positions"].shape[0]) if "positions" in kv else (
-        kv["k"].shape[1])
+    Returns (cache, n_kept) — kept rows occupy slots [0, n_kept). The
+    writes go in place into the zeroed cache (the reference fills a numpy
+    copy and converts it back to device arrays)."""
     cache = model.init_cache(batch=1, capacity=capacity, device=device)
-    hd = cfg.resolved_head_dim
-    k_all = torch.from_numpy(np.ascontiguousarray(kv["k"])).to(device)
-    v_all = torch.from_numpy(np.ascontiguousarray(kv["v"])).to(device)
-    for ai, (_, _, (sect, j, g)) in enumerate(_layer_cache_refs(cache, cfg)):
-        blk = cache[sect][j]["self"]
-        # in-place writes into the zeroed cache (the reference fills a
-        # numpy copy and converts it back to device arrays)
-        blk["k"][g, 0, :n_kept] = k_all[ai].reshape(n_kept, -1, hd)
-        blk["v"][g, 0, :n_kept] = v_all[ai].reshape(n_kept, -1, hd)
-    return cache, n_kept
+    return cache, write_kvdata(cache, kv, cfg, 0, device)
 
 
 @dataclasses.dataclass

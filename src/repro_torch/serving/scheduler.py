@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.core.compression.base import KVData
 from repro_torch.models import Model
-from repro_torch.serving.runner import _layer_cache_refs
+from repro_torch.serving.runner import write_kvdata
 from repro_torch.serving.timemodel import TimeModel
 from repro_torch.serving.workload import Request
 
@@ -98,19 +98,10 @@ class ContinuousBatcher:
 
         Writes go in place into the target lane of each layer's cache
         leaf (the reference's per-leaf ``.at[...].set`` builds new arrays);
-        no other lane is touched.
+        a mamba layer's state is written whole; no other lane is touched.
         """
-        cfg = self.model.cfg
-        n_kept = int(kv["positions"].shape[0]) if "positions" in kv else 0
-        hd = cfg.resolved_head_dim
-        k_all = torch.from_numpy(np.ascontiguousarray(kv["k"])).to(self.device)
-        v_all = torch.from_numpy(np.ascontiguousarray(kv["v"])).to(self.device)
-        for ai, (_, _, (sect, j, g)) in enumerate(
-                _layer_cache_refs(self.cache, cfg)):
-            blk = self.cache[sect][j]["self"]
-            blk["k"][g, lane, :n_kept] = k_all[ai].reshape(n_kept, -1, hd)
-            blk["v"][g, lane, :n_kept] = v_all[ai].reshape(n_kept, -1, hd)
-        return n_kept
+        return write_kvdata(self.cache, kv, self.model.cfg, lane,
+                            self.device)
 
     def free_lanes(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if not s.active]

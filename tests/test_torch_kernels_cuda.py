@@ -1,4 +1,5 @@
-"""The port's attention kernels against their plain versions on the card.
+"""The port's attention and selective-scan kernels against their plain
+versions on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA card.
 This file imports no JAX, so on a machine with a card and without JAX it
@@ -7,10 +8,11 @@ runs on its own:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 It also holds the input makers that the CPU parity tests
-(``test_torch_{decode_attn,fused_prefill,prefill_attn}.py``) share. The
-tolerance, rtol 1e-4 / atol 2e-4, is the reference's own kernel tolerance
-(``tests/test_kernels_fused_prefill.py``): the kernels sum in another order
-than the plain versions, in f32 throughout.
+(``test_torch_{decode_attn,fused_prefill,prefill_attn,mamba_scan}.py``)
+share. The attention tolerance, rtol 1e-4 / atol 2e-4, is the reference's
+own kernel tolerance (``tests/test_kernels_fused_prefill.py``), and so is
+the scan's, rtol = atol = 1e-4 (``tests/test_kernels_mamba_scan.py``): the
+kernels sum in another order than the plain versions, in f32 throughout.
 """
 import numpy as np
 import pytest
@@ -19,9 +21,11 @@ import torch
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.fused_prefill import ops as fused_ops
 from repro_torch.kernels.kivi import ref as tkivi
+from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.prefill_attn import ops as prefill_ops
 
 TOL = dict(rtol=1e-4, atol=2e-4)
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
 NAMES = ("k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero")
 
 
@@ -55,6 +59,18 @@ def qkv(seed, b, s, h, kv, hd):
 
 def chunk(rng, p, c, hd):
     return tuple(rng.randn(p, c, hd).astype(np.float32) for _ in range(3))
+
+
+def scan_inputs(seed, b, s, d, n, h0_scale=0.1):
+    """(dt, x, bs, cs, a, h0) f32 numpy, as the reference's kernel test
+    makes them: dt = |N(0, 1)| / 10, a = -|N(0, 1)|."""
+    rng = np.random.RandomState(seed)
+    return (np.abs(rng.randn(b, s, d)).astype(np.float32) * 0.1,
+            rng.randn(b, s, d).astype(np.float32),
+            rng.randn(b, s, n).astype(np.float32),
+            rng.randn(b, s, n).astype(np.float32),
+            -np.abs(rng.randn(d, n)).astype(np.float32),
+            rng.randn(b, d, n).astype(np.float32) * h0_scale)
 
 
 @pytest.mark.cuda
@@ -116,3 +132,20 @@ def test_flash_attention_matches_plain():
             want = prefill_ops.causal_attention(q, k, v)
             got = prefill_ops.causal_attention(q.cuda(), k.cuda(), v.cuda())
             torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.cuda
+def test_selective_scan_matches_plain():
+    """On the card: the CUDA scan against the plain version over every
+    state size it takes, ragged lengths and channel counts, batches and a
+    non-zero h0 (``chip_smoke.py`` repeats this at full width)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for shape in ((1, 1, 64, 16), (2, 77, 200, 16), (3, 130, 128, 8),
+                  (1, 33, 50, 32), (2, 19, 130, 4), (1, 40, 129, 2),
+                  (2, 9, 260, 1)):
+        args = [torch.from_numpy(a) for a in scan_inputs(30, *shape)]
+        y_want, h_want = scan_ops.selective_scan(*args)
+        y_got, h_got = scan_ops.selective_scan(*(a.cuda() for a in args))
+        torch.testing.assert_close(y_got.cpu(), y_want, **SCAN_TOL)
+        torch.testing.assert_close(h_got.cpu(), h_want, **SCAN_TOL)
