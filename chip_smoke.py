@@ -24,22 +24,28 @@ stops the run with a non-zero exit when it fails:
              bf16 inputs within the same tolerance. Each is timed with CUDA
              events (warm-up, a synchronize on every repetition) beside its
              plain version, its bound and, for flash_attention, PyTorch's
-             ``scaled_dot_product_attention`` in f32 (TF32 off); the
-             attention kernels and their plain versions also as device time
-             (CUDA-graph replays, without the host's share). The selective
-             scan at full-width falcon-mamba-7b shapes (D 8192, N 16):
-             (B 1, S 640), (B 1, S 4096) and (B 2, S 577, h0 != 0), y and hT
-             within rtol 1e-4 / atol 1e-4, timed the same way.
+             ``scaled_dot_product_attention`` in the same type (f32 with
+             TF32 off, and bf16); the attention kernels and their plain
+             versions also as device time (CUDA-graph replays, without the
+             host's share). The selective scan at full-width falcon-mamba-7b
+             shapes (D 8192, N 16): (B 1, S 640), (B 1, S 4096) and (B 2,
+             S 577, h0 != 0), y and hT within rtol 1e-4 / atol 1e-4, timed
+             the same way, beside its byte bound and its SFU floor (one
+             exponential a (t, d, n) step at 16 a clock on each SM).
 3. serving — full-width adaptcache-8b (32 layers, d_model 4096, bf16,
              seeded random weights, ~16 GB) behind ``build_engine`` with the
              fixed KIVI policy, so every insert compresses and every hit
              decompresses: ``engine.process`` on Poisson requests, then
              ``summarize``. The KIVI launch counters are zeroed just before
              ``process`` and read just after; every kernel of the path must
-             have launched. Then the outputs are checked: the summary is
-             complete and finite, compressing a real prefill entry through
-             the kernel gives the plain version's bytes, and the model's
-             decode step agrees with its prefill.
+             have launched. A new engine then serves the first request
+             (a miss: prefill, quantize, decode) under ``torch.profiler``
+             (CPU and CUDA activities): the ten device operations with the
+             most time, the scan's and KIVI's shares and the device's idle
+             share of the profiled window are printed. Then the outputs are
+             checked: the summary is complete and finite, compressing a real
+             prefill entry through the kernel gives the plain version's
+             bytes, and the model's decode step agrees with its prefill.
 4. fused   — the fused-compute path: the port's ``kernel_bench`` at full
              width measures the fused calibration on the card (the counters
              of decode_attn, fused_prefill and flash_attention are zeroed
@@ -55,8 +61,9 @@ stops the run with a non-zero exit when it fails:
              ``build_engine``. The selective-scan and KIVI counters are
              zeroed just before ``engine.process`` and read just after: the
              scan must have launched a positive multiple of 64 times (one a
-             layer a prefill) and KIVI quantize at least once. No request
-             hits: the reference sizes its tiers from ``kv_bytes_per_token``,
+             layer a prefill) and KIVI quantize at least once; one request
+             is then profiled as in phase 3. No request hits: the reference
+             sizes its tiers from ``kv_bytes_per_token``,
              which counts attention layers only, so on this model they hold
              1.5 and 6 bytes. So a real prefill's ``ssm``/``conv`` state is
              compressed through the kernel (at 4 bits and at the served
@@ -77,6 +84,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -93,6 +101,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BPS = 3.35e12            # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_OPS = 495e12            # H100 SXM dense TF32 tensor cores
+SFU_PER_CLOCK = 16           # exponentials a clock on one SM
 TOL = dict(rtol=1e-4, atol=2e-4)
 ARCH = "adaptcache-8b"
 T_TOKENS = 512               # context length of the kernel phase
@@ -353,22 +362,21 @@ def phase_flash_attention(ops, ref):
                "plain_ms": device_ms(plain, calls=1),
                "call_ms": time_ms(kern, reps=10),
                "plain_call_ms": time_ms(plain, reps=3),
-               "library_ms": None,
                **attention_bound(n_bytes, 4 * b * h * hd * s * (s + 1) / 2)}
-        if dtype == torch.float32:
-            # the yardstick only: PyTorch's own attention, f32, no TF32
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-            # per call: at this size the host's share is negligible
-            row["library_ms"] = time_ms(lib, reps=10)
-            row["library_max_abs_diff"] = float(
-                (lib().transpose(1, 2) - got).abs().max())
+        # the yardstick only: PyTorch's own attention in the same type
+        # (f32 without TF32, or bf16), which the port never calls
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        # per call: at this size the host's share is negligible
+        row["library_ms"] = time_ms(lib, reps=10)
+        row["library_max_abs_diff"] = float(
+            (lib().transpose(1, 2).float() - got).abs().max())
         rows.append(row)
         print(f"  flash_attention {row['dtype']} (B, S, H, Kv, hd)=({b}, "
               f"{s}, {h}, {kv}, {hd}): within tolerance; device "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, sdpa "
-              f"{row['library_ms']}, bound {row['bound_ms']:.4f} by "
+              f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
               f"{row['bound_by']}, f32 cores {row['f32_core_ms']:.4f}); per "
               f"call {row['call_ms']:.4f} ms (plain "
               f"{row['plain_call_ms']:.4f})")
@@ -390,10 +398,23 @@ def scan_inputs(case: dict, seed: int):
     return [torch.from_numpy(a).cuda() for a in arrays]
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip()) * 1e6
+
+
 def phase_selective_scan(ops, ref):
     """The scan against its plain version (a sequential loop over time) at
     each case of ``SCAN``, then timed: device time (CUDA-graph replays) and
-    per call (events), beside the plain version and the bound."""
+    per call (events), beside the plain version, the bound and the SFU
+    floor (its exponentials over the special-function units' rate at the
+    card's highest clock)."""
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = [], 0.0
     for i, case in enumerate(SCAN):
         b, s, d, n = case["b"], case["s"], case["d"], case["n"]
@@ -405,6 +426,7 @@ def phase_selective_scan(ops, ref):
                                          got, want, SCAN_TOL))
         n_bytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n)
         t, by = bound_ms(n_bytes, 7 * b * s * d * n)
+        exps = b * s * d * n
         kern = lambda: ops.selective_scan(*args)
         plain = lambda: ref.selective_scan_ref(*args)
         row = {"shape": dict(case), "ms": device_ms(kern, calls=10),
@@ -413,12 +435,15 @@ def phase_selective_scan(ops, ref):
                "plain_call_ms": time_ms(plain, reps=2, warmup=1),
                "bound_ms": t, "bound_by": by, "bytes": n_bytes,
                "f32_ops_ms": 7 * b * s * d * n / F32_OPS * 1e3,
-               "exps": b * s * d * n, "library_ms": None}
+               "exps": exps, "sm_clock_hz": clock,
+               "sfu_ms": exps / (SFU_PER_CLOCK * sms * clock) * 1e3,
+               "library_ms": None}
         rows.append(row)
         print(f"  selective_scan (B, S, D, N)=({b}, {s}, {d}, {n}), h0 "
               f"scale {case['h0']}: y and hT within rtol 1e-4 / atol 1e-4; "
               f"device {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-              f"bound {t:.4f} by {by}); per call {row['call_ms']:.4f} ms "
+              f"bound {t:.4f} by {by}, SFU floor "
+              f"{row['sfu_ms']:.4f}); per call {row['call_ms']:.4f} ms "
               f"(plain {row['plain_call_ms']:.4f})")
     return rows, worst
 
@@ -504,13 +529,72 @@ def phase_kernels(kernel, ref, Quantized):
     return results, worst
 
 
+def summarize_profile(events, device_type) -> dict:
+    """From a profiler's events: the device's busy time (the union of its
+    activities' intervals) and idle share over the profiled window (the
+    first to the last event, host or device), the ten device operations
+    with the most total time, and the selective scan's and KIVI's totals."""
+    dev = [e for e in events if e.device_type == device_type]
+    if not dev:
+        fail("the profile recorded no device activity")
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in dev):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events))
+    total, calls = {}, {}
+    for e in dev:
+        total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
+        calls[e.name] = calls.get(e.name, 0) + 1
+    top = sorted(total, key=total.get, reverse=True)[:10]
+    share = lambda pat: sum(t for k, t in total.items() if re.search(pat, k))
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / window,
+            "top": [{"name": k, "ms": total[k] / 1e3, "calls": calls[k]}
+                    for k in top],
+            "scan_ms": share(r"scan_fwd") / 1e3,
+            "kivi_ms": share(r"quantize_(rows|cols)") / 1e3}
+
+
+def profile_request(engine, request, label: str) -> dict:
+    """``torch.profiler`` (CPU and CUDA activities) over ``engine.process``
+    of one request, summarized by ``summarize_profile`` and printed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = engine.process([request])[0]
+        torch.cuda.synchronize()
+    out = summarize_profile(prof.events(), DeviceType.CUDA)
+    out["hit_tier"] = result.hit_tier
+    busy = out["busy_ms"]
+    print(f"  profile of one {label} request (hit tier {result.hit_tier}): "
+          f"window {out['window_ms']:.1f} ms, device busy {busy:.1f} ms, "
+          f"idle share {out['idle_share']:.4f}")
+    for i, op in enumerate(out["top"], 1):
+        print(f"    {i:2d}. {op['ms']:9.3f} ms {op['calls']:6d} calls "
+              f"{100 * op['ms'] / busy:5.1f} % of busy  {op['name'][:90]}")
+    for what in ("scan", "kivi"):
+        ms = out[f"{what}_ms"]
+        print(f"    {what}: {ms:.3f} ms, {100 * ms / busy:.2f} % of busy, "
+              f"{100 * ms / out['window_ms']:.3f} % of the window")
+    return out
+
+
 def serve(runner, cfg, n_active: int, kernels=(), want_hits: bool = True,
-          **engine_kw):
+          profile_label=None, **engine_kw):
     """Serve the fixed workload (one context per task, ~8 s of Poisson
     requests, seeded) through ``build_engine`` with the fixed KIVI policy,
-    and check the summary. Returns (summary, results, requests, contexts,
-    wall seconds of ``engine.process``, the launches of the KIVI kernels
-    and of the kernel modules in ``kernels`` during it)."""
+    and check the summary; with ``profile_label``, then profile the first
+    request served by a new engine (``profile_request``), which has not
+    memoized the context's prefill: a miss that prefills and quantizes.
+    Returns (summary, results, requests, contexts, wall seconds of
+    ``engine.process``, the launches of the KIVI kernels and of the kernel
+    modules in ``kernels`` during it, the profile or None)."""
     from repro_torch.kernels.kivi import kernel as kivi_kernel
     from repro_torch.serving.baselines import build_engine
     from repro_torch.serving.engine import summarize
@@ -521,9 +605,11 @@ def serve(runner, cfg, n_active: int, kernels=(), want_hits: bool = True,
                              max_len=640, n_probes=2)
     requests = poisson_requests(rng, contexts, rate_hz=1.0, duration_s=8.0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ssd_") as ssd_root:
-        rig = build_engine(runner, contexts, cfg, n_active,
-                           policy=("kivi", RATE), dram_entries=1.5,
-                           ssd_entries=6.0, ssd_root=ssd_root, **engine_kw)
+        make_rig = lambda: build_engine(
+            runner, contexts, cfg, n_active, policy=("kivi", RATE),
+            dram_entries=1.5, ssd_entries=6.0, ssd_root=ssd_root,
+            **engine_kw)
+        rig = make_rig()
         counters = [kivi_kernel.LAUNCHES] + [m.LAUNCHES for m in kernels]
         for c in counters:
             for k in c:
@@ -533,12 +619,15 @@ def serve(runner, cfg, n_active: int, kernels=(), want_hits: bool = True,
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = {k: n for c in counters for k, n in c.items()}
-    summary = summarize(results, selector_stats=rig.controller.selector.stats)
-    print(f"  {len(contexts)} contexts of "
-          f"{[len(c.tokens) for c in contexts]} tokens, {len(requests)} "
-          f"requests, engine.process {wall_s:.2f} s wall")
-    check_summary(summary, results, len(requests), want_hits)
-    return summary, results, requests, contexts, wall_s, launches
+        summary = summarize(results,
+                            selector_stats=rig.controller.selector.stats)
+        print(f"  {len(contexts)} contexts of "
+              f"{[len(c.tokens) for c in contexts]} tokens, {len(requests)} "
+              f"requests, engine.process {wall_s:.2f} s wall")
+        check_summary(summary, results, len(requests), want_hits)
+        prof = (profile_request(make_rig().engine, requests[0],
+                                profile_label) if profile_label else None)
+    return summary, results, requests, contexts, wall_s, launches, prof
 
 
 def check_summary(summary, results, n_requests: int,
@@ -579,7 +668,8 @@ def phase_serving():
           f"{time.perf_counter() - t0:.1f} s")
     runner = ModelRunner(model, params, capacity=1024)
     n_active = model.active_param_count()
-    summary, _, _, contexts, wall_s, launches = serve(runner, cfg, n_active)
+    summary, _, _, contexts, wall_s, launches, prof = serve(
+        runner, cfg, n_active, profile_label="phase-3")
     print("  summary (TTFT is simulated on the reference's A100 TimeModel, "
           "not measured on this card):")
     for k, v in summary.items():
@@ -618,7 +708,7 @@ def phase_serving():
     if not rel < 5e-2:
         fail(f"decode step disagrees with prefill: max rel err {rel:.3g}")
     print(f"  decode step vs prefill logits (bf16): max rel err {rel:.3g}")
-    return summary, launches, wall_s, (runner, cfg, n_active)
+    return summary, launches, wall_s, (runner, cfg, n_active), prof
 
 
 def phase_fused(attn_kernels, summary3, serving):
@@ -665,9 +755,9 @@ def phase_fused(attn_kernels, summary3, serving):
           f" speedup {cal.speedup:.3f}x")
 
     runner, cfg, n_active = serving
-    summary, _, _, _, wall_s, _ = serve(runner, cfg, n_active,
-                                     fused_compute=True,
-                                     fused_residual_frac=cal.residual_frac)
+    summary, _, _, _, wall_s, _, _ = serve(
+        runner, cfg, n_active, fused_compute=True,
+        fused_residual_frac=cal.residual_frac)
     print("  phase 3 (profiled decompress) vs fused pricing at the measured "
           "residual (simulated TTFT, A100 TimeModel):")
     for k, v in summary.items():
@@ -735,8 +825,9 @@ def phase_mamba(scan_kernel):
           f"params, init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
     runner = ModelRunner(model, params, capacity=1024)
-    summary, results, requests, contexts, wall_s, launches = serve(
-        runner, cfg, n_params, kernels=(scan_kernel,), want_hits=False)
+    summary, results, requests, contexts, wall_s, launches, prof = serve(
+        runner, cfg, n_params, kernels=(scan_kernel,), want_hits=False,
+        profile_label="phase-5")
     print("  summary (TTFT is simulated on the reference's A100 TimeModel, "
           "not measured on this card):")
     for k, v in summary.items():
@@ -813,7 +904,7 @@ def phase_mamba(scan_kernel):
     return {"summary": summary, "launches": launches, "wall_s": wall_s,
             "n_params": n_params, "round_trips": round_trips,
             "decode_rel_err_f32": rel32, "decode_rel_err_bf16": rel16,
-            "answer_tokens": len(answer)}
+            "answer_tokens": len(answer), "profile": prof}
 
 
 def main() -> int:
@@ -874,7 +965,7 @@ def main() -> int:
     }
 
     print("[3/5] serving full-width adaptcache-8b through build_engine")
-    summary, launches, wall_s, serving = phase_serving()
+    summary, launches, wall_s, serving, profile3 = phase_serving()
 
     print("[4/5] fused compute: kernel_bench calibration, then serving "
           "priced with it")
@@ -933,7 +1024,8 @@ def main() -> int:
         "build_s": build_s, "kernel_rows": kernel_rows,
         "timed_rows": {k: v[0] for k, v in timed_rows.items()},
         "kernels": entries, "summary": summary, "launches": launches,
-        "engine_wall_s": wall_s, "fused": fused, "mamba": mamba},
+        "engine_wall_s": wall_s, "profile_phase3": profile3,
+        "fused": fused, "mamba": mamba},
         indent=1, default=float))
     (out_dir / "fused_calibration.json").write_text(
         json.dumps(fused["calibration"], indent=2))

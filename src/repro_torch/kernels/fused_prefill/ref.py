@@ -30,14 +30,20 @@ def chunk_prefill_ref(q, k_prefix, v_prefix, k_chunk, v_chunk,
     k = torch.cat([k_prefix.float(), k_chunk.float()], dim=-2)
     v = torch.cat([v_prefix.float(), v_chunk.float()], dim=-2)
     scores = (q.float() @ k.transpose(-1, -2)) * (hd ** -0.5)   # (C, T+C)
-    kpos = torch.arange(t + c, device=q.device)
-    qpos = torch.arange(c, device=q.device)[:, None]
-    # prefix columns: visible iff resident (kpos < cur_len); chunk
-    # columns: causal within the chunk (kpos - t <= qpos)
-    visible = torch.where(kpos < t, kpos < _lengths(cur_len, q),
-                          kpos - t <= qpos)
-    scores = torch.where(visible, scores, torch.full_like(scores, NEG_INF))
+    scores = torch.where(visible_mask(t, c, cur_len, q), scores,
+                         torch.full_like(scores, NEG_INF))
     return torch.softmax(scores, dim=-1) @ v
+
+
+def visible_mask(t: int, c: int, cur_len, like: torch.Tensor
+                 ) -> torch.Tensor:
+    """([P,] C, T+C) bool over [prefix; chunk] keys: a prefix column is
+    visible iff resident (kpos < cur_len), a chunk column iff causal within
+    the chunk (kpos - t <= qpos)."""
+    kpos = torch.arange(t + c, device=like.device)
+    qpos = torch.arange(c, device=like.device)[:, None]
+    return torch.where(kpos < t, kpos < _lengths(cur_len, like),
+                       kpos - t <= qpos)
 
 
 def chunk_prefill_quantized_ref(q, kq: Quantized, vq: Quantized,

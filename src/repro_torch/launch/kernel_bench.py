@@ -14,11 +14,20 @@ calibration JSON that ``serve --fused-compute --fused-calibration`` reads
   dequantize kernel over the stacked prefix planes (K as a (P*T, hd)
   axis-0 matrix, V as a (P*T, hd) axis-1 matrix; groups never cross
   planes because T is a multiple of the group);
-* ``attn_s``: the plain ``chunk_prefill_ref`` on the dequantized f32
-  prefix, on the same device.
+* ``attn_s``: the dense two-pass attention as ONE library call on the
+  same shapes, as the reference times one jitted ``chunk_prefill_ref``:
+  ``scaled_dot_product_attention`` over the dequantized f32 prefix
+  concatenated with the chunk (built before the clock starts), masked by
+  ``chunk_prefill_ref``'s own visible mask (``attn_baseline``). It is a
+  timing yardstick only: the port computes nothing through it. The eager
+  plain ``chunk_prefill_ref``, several launches, is kept as the extra
+  ``chunk_prefill_plain_*`` row beside the ``chunk_prefill_sdpa_*`` row.
 
 The residual fraction (fused - attn) / dequant says how much of the
-dequantize the fused kernel still pays. The JSON carries the reference's
+dequantize the fused kernel still pays. The TF32 flags
+(``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32``) are set off, so every f32 product,
+the yardstick's among them, is full f32. The JSON carries the reference's
 keys plus ``device`` and ``power_limit``, with ``backend`` ``cuda`` or
 ``cpu``. By default it goes to ``experiments/torch/fused_calibration.json``;
 the reference's ``experiments/fused_calibration.json`` is never written.
@@ -167,6 +176,21 @@ def bench_decode_attn(rng, device, time_us, shape, rows: List[str]) -> None:
         rows.append(f"decode_attn_{p}x{t}x{hd}_{bits}b,{us:.1f},")
 
 
+def attn_baseline(q, k_prefix, v_prefix, k_chunk, v_chunk,
+                  cur_len) -> Callable[[], torch.Tensor]:
+    """The one library call that ``attn_s`` times: a zero-argument callable
+    computing ``fused_ref.chunk_prefill_ref`` with the same arguments, as
+    ``scaled_dot_product_attention`` over [prefix; chunk] keys and values
+    under its visible mask, all built here, before any clock starts."""
+    c, t = q.shape[-2], k_prefix.shape[-2]
+    k = torch.cat([k_prefix.float(), k_chunk.float()], dim=-2)
+    v = torch.cat([v_prefix.float(), v_chunk.float()], dim=-2)
+    mask = fused_ref.visible_mask(t, c, cur_len, q)
+    qf = q.float()
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qf, k, v, attn_mask=mask)
+
+
 def bench_fused_prefill(rng, device, time_us, shape,
                         rows: List[str]) -> Dict[str, object]:
     """Fused-kernel rows and the fused-vs-two-pass calibration split."""
@@ -186,12 +210,17 @@ def bench_fused_prefill(rng, device, time_us, shape,
             k_group=group, v_group=group))
         dequant_us = time_us(lambda: (kivi_ops.dequantize(kq),
                                       kivi_ops.dequantize(vq)))
-        attn_us = time_us(lambda: fused_ref.chunk_prefill_ref(
-            q, kd, vd, kc, vc, cur))
+        attn_us = time_us(attn_baseline(q, kd, vd, kc, vc, cur))
         speedup = (dequant_us + attn_us) / max(fused_us, 1e-9)
         rows.append(f"fused_prefill_{p}x{t}x{c}x{hd}_{bits}b,"
                     f"{fused_us:.1f},speedup={speedup:.2f}")
         if bits == CAL_BITS:
+            plain_us = time_us(lambda: fused_ref.chunk_prefill_ref(
+                q, kd, vd, kc, vc, cur))
+            rows.append(f"chunk_prefill_sdpa_{p}x{t}x{c}x{hd}_{bits}b,"
+                        f"{attn_us:.1f},")
+            rows.append(f"chunk_prefill_plain_{p}x{t}x{c}x{hd}_{bits}b,"
+                        f"{plain_us:.1f},")
             cal = {"fused_s": fused_us * 1e-6,
                    "dequant_s": dequant_us * 1e-6,
                    "attn_s": attn_us * 1e-6,
@@ -215,6 +244,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "adaptcache-8b's full widths")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     shapes = SHAPES["smoke" if args.smoke else "full"]
     time_us = make_timer(device)
     rng = np.random.RandomState(0)

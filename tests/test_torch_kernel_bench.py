@@ -5,11 +5,15 @@ import contextlib
 import io
 import json
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.estimator import load_fused_calibration
+from repro_torch.kernels.fused_prefill import ref as fused_ref
 from repro_torch.launch import kernel_bench
+
+ATTN_TOL = dict(rtol=1e-4, atol=2e-4)   # the port's attention tolerance
 
 
 def test_smoke_rows_and_calibration(tmp_path):
@@ -23,7 +27,8 @@ def test_smoke_rows_and_calibration(tmp_path):
     names = [r.split(",")[0] for r in rows]
     for prefix, n in (("kivi_quant_", 6), ("kivi_dequant_", 6),
                       ("prefill_attn_", 2), ("decode_attn_", 3),
-                      ("fused_prefill_", 3)):
+                      ("fused_prefill_", 3), ("chunk_prefill_sdpa_", 1),
+                      ("chunk_prefill_plain_", 1)):
         assert sum(x.startswith(prefix) for x in names) == n, prefix
     for r in rows:
         name, us, derived = r.split(",")
@@ -45,3 +50,24 @@ def test_default_path_and_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             kernel_bench.main(["--smoke"])
+
+
+@pytest.mark.parametrize("cur_len", ["full", "partial", "zero"])
+def test_attn_baseline_computes_chunk_prefill_ref(cur_len):
+    """The one library call that ``attn_s`` times computes
+    ``chunk_prefill_ref``'s function (smoke shapes P4 x T512 x C64 x hd64,
+    on the CPU), so the calibration's two-pass time is of the same work:
+    all T prefix tokens resident, a different partial length a plane, and
+    none (the chunk's causal block alone)."""
+    p, t, c, hd = 4, 512, 64, 64
+    rng = np.random.RandomState(11)
+    q, kc, vc = (torch.from_numpy(rng.randn(p, c, hd).astype(np.float32))
+                 for _ in range(3))
+    kd, vd = (torch.from_numpy(rng.randn(p, t, hd).astype(np.float32))
+              for _ in range(2))
+    n = {"full": [t] * p, "partial": [t - 1, 1, t // 2 + 7, 300],
+         "zero": [0] * p}[cur_len]
+    cur = torch.tensor(n, dtype=torch.int32).reshape(p, 1)
+    got = kernel_bench.attn_baseline(q, kd, vd, kc, vc, cur)()
+    want = fused_ref.chunk_prefill_ref(q, kd, vd, kc, vc, cur)
+    torch.testing.assert_close(got, want, **ATTN_TOL)

@@ -134,18 +134,38 @@ def test_flash_attention_matches_plain():
             torch.testing.assert_close(got.cpu(), want, **TOL)
 
 
+def falcon_scan_inputs(seed, b, s, d, n, h0_scale=1.0):
+    """``scan_inputs`` in falcon-mamba's decay regime: its init's a =
+    -(1 ... N) on every channel and step sizes dt uniform in [0, 1), so
+    that each decay factor exp(dt a) spans e^-16 to 1."""
+    dt, x, bs, cs, _, h0 = scan_inputs(seed, b, s, d, n, h0_scale)
+    dt = np.random.RandomState(seed + 1).uniform(0.0, 1.0, dt.shape)
+    a = -np.tile(np.arange(1, n + 1), (d, 1))
+    return (dt.astype(np.float32), x, bs, cs, a.astype(np.float32), h0)
+
+
 @pytest.mark.cuda
 def test_selective_scan_matches_plain():
     """On the card: the CUDA scan against the plain version over every
-    state size it takes, ragged lengths and channel counts, batches and a
-    non-zero h0 (``chip_smoke.py`` repeats this at full width)."""
+    state size it takes, lengths that no chunk divides (1 and 577),
+    ragged channel counts, batches with a non-zero h0, and falcon-mamba's
+    decay regime, which exercises the SFU exponential over its whole
+    range (``chip_smoke.py`` repeats this at full width)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for shape in ((1, 1, 64, 16), (2, 77, 200, 16), (3, 130, 128, 8),
-                  (1, 33, 50, 32), (2, 19, 130, 4), (1, 40, 129, 2),
-                  (2, 9, 260, 1)):
-        args = [torch.from_numpy(a) for a in scan_inputs(30, *shape)]
+    cases = [(scan_inputs, shape, 0.1) for shape in (
+        (1, 1, 64, 16), (2, 77, 200, 16), (3, 130, 128, 8), (1, 33, 50, 32),
+        (2, 19, 130, 4), (1, 40, 129, 2), (2, 9, 260, 1), (3, 1, 96, 8),
+        (1, 577, 192, 16), (1, 577, 64, 32))]
+    cases += [(scan_inputs, (2, 577, 300, 16), 1.0),
+              (falcon_scan_inputs, (1, 577, 256, 16), 1.0),
+              (falcon_scan_inputs, (2, 130, 96, 16), 0.0)]
+    for make, shape, h0_scale in cases:
+        args = [torch.from_numpy(a) for a in make(30, *shape, h0_scale)]
         y_want, h_want = scan_ops.selective_scan(*args)
         y_got, h_got = scan_ops.selective_scan(*(a.cuda() for a in args))
-        torch.testing.assert_close(y_got.cpu(), y_want, **SCAN_TOL)
-        torch.testing.assert_close(h_got.cpu(), h_want, **SCAN_TOL)
+        what = f"{make.__name__}{shape} h0 scale {h0_scale}"
+        torch.testing.assert_close(y_got.cpu(), y_want, **SCAN_TOL,
+                                   msg=lambda m: f"{what} y: {m}")
+        torch.testing.assert_close(h_got.cpu(), h_want, **SCAN_TOL,
+                                   msg=lambda m: f"{what} hT: {m}")

@@ -38,6 +38,7 @@ from repro_torch.serving.engine import summarize as tsummarize
 from repro_torch.serving.runner import ModelRunner as TRunner
 from repro_torch.serving.runner import kvdata_to_cache
 from repro_torch.serving.scheduler import ContinuousBatcher as TBatcher
+from test_torch_models import BF16_SLACK, bf16_gap
 
 ARCH = "falcon-mamba-7b"
 FULL_PARAMS = 7_006_326_784        # the reference's active_param_count
@@ -97,6 +98,18 @@ def test_mamba_fwd_matches_reference(pair, mode):
         _close(tc[name], jc[name])
         if decode:                                   # updated in place
             assert tc[name] is tcache[name]
+
+
+def test_bf16_prefill_logits_within_reference_gap():
+    """bf16 parity at the smoke depth (2 layers): the port's bf16 prefill
+    logits differ from the reference's f32 logits by at most 2 times the
+    reference's own bf16-against-f32 difference, both relative to the
+    largest f32 logit (``test_torch_models.bf16_gap``; a_log and d_skip
+    stay f32 in both packages)."""
+    toks = np.random.RandomState(1).randint(0, 512, (2, 24))
+    ref_gap, port_gap = bf16_gap(ARCH, toks)
+    assert 0.0 < ref_gap < 0.1, ref_gap
+    assert port_gap <= BF16_SLACK * ref_gap, (port_gap, ref_gap)
 
 
 def test_model_prefill_decode_and_greedy_tokens(pair, runners):

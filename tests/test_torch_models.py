@@ -3,8 +3,11 @@ package, on the same weights (JAX params carried across through numpy).
 
 Tolerance: logits agree within rtol = atol = 1e-4 in f32. The two
 frameworks compute the same math but XLA's CPU matmuls and torch's sum in
-another order (and XLA fuses multiply-adds), so the last bits differ.
+another order (and XLA fuses multiply-adds), so the last bits differ. In
+bf16 the bound comes from the reference itself (``bf16_gap``).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +23,9 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models.convert import params_from_numpy
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-DENSE = ["adaptcache-8b", "qwen3-1.7b", "stablelm-3b", "smollm-135m"]
+DENSE = ["adaptcache-8b", "qwen3-1.7b", "stablelm-3b", "smollm-135m",
+         "minicpm-2b"]
+BF16_SLACK = 2.0    # the port's bf16 error, in units of the reference's own
 
 
 def _pair(arch: str, seed: int = 0):
@@ -43,6 +48,37 @@ def _close(got: torch.Tensor, want) -> None:
                                **TOL)
 
 
+def bf16_gap(arch: str, toks: np.ndarray, seed: int = 0):
+    """Prefill logits of the smoke model ``arch`` on shared weights, as
+    max |logits - f32 reference logits| over max |f32 reference logits|:
+    (the reference in bf16, the port in bf16). The bf16 weights are the
+    f32 reference weights cast to each leaf's bf16-config dtype, carried
+    across through ``params_from_numpy``."""
+    cfg = jget(arch, smoke=True)
+    jm = jbuild(cfg)
+    jp = jm.init(jax.random.key(seed))
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16",
+                                param_dtype="bfloat16")
+    jm16 = jbuild(cfg16)
+    jp16 = jax.tree.map(lambda a, sd: a.astype(sd.dtype), jp,
+                        jax.eval_shape(jm16.init, jax.random.key(seed)))
+    tcfg16 = dataclasses.replace(tget(arch, smoke=True), dtype="bfloat16",
+                                 param_dtype="bfloat16")
+    tm16 = tbuild(tcfg16)
+    tp16 = params_from_numpy(jax.tree.map(np.asarray, jp16), tcfg16, "cpu")
+    cap = toks.shape[1] + 8
+    want = np.asarray(jm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                                 capacity=cap)[0], np.float32)
+    ref16 = np.asarray(jm16.prefill(jp16, {"tokens": jnp.asarray(toks)},
+                                    capacity=cap)[0], np.float32)
+    port16 = tm16.prefill(tp16, {"tokens": torch.from_numpy(toks)},
+                          capacity=cap)[0]
+    assert port16.dtype == torch.bfloat16
+    scale = np.abs(want).max()
+    return (float(np.abs(ref16 - want).max() / scale),
+            float(np.abs(port16.float().numpy() - want).max() / scale))
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_prefill_logits_and_cache_match(arch):
     """qk-norm (qwen3), partial rotary (stablelm) and the plain Llama shape
@@ -54,6 +90,18 @@ def test_prefill_logits_and_cache_match(arch):
     _close(tl, jl)
     for name in ("k", "v"):
         _close(tc["stack"][0]["self"][name], jc["stack"][0]["self"][name])
+
+
+def test_bf16_prefill_logits_within_reference_gap():
+    """bf16 parity, smoke adaptcache-8b (2 layers): the port's bf16 prefill
+    logits differ from the reference's f32 logits, relative to the largest
+    f32 logit, by at most BF16_SLACK (2) times the reference's own bf16
+    logits' difference from the same f32 logits. So the bf16 tolerance is
+    the reference's own bf16 rounding error, not a number picked here."""
+    toks = np.random.RandomState(1).randint(0, 512, (2, 24))
+    ref_gap, port_gap = bf16_gap("adaptcache-8b", toks)
+    assert 0.0 < ref_gap < 0.1, ref_gap
+    assert port_gap <= BF16_SLACK * ref_gap, (port_gap, ref_gap)
 
 
 def test_decode_logits_match_scalar_and_per_lane(smoke8b):
