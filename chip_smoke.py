@@ -11,7 +11,8 @@ stops the run with a non-zero exit when it fails:
              libraries (``kivi``, ``decode_attn``, ``fused_prefill``,
              ``flash_attn``, ``selective_scan`` under
              ``src/repro_torch/kernels/*/csrc/``), one ``nvcc`` each, all
-             started together.
+             started together, and print each kernel's registers and
+             spills as ptxas reports them.
 2. kernels — at full-width adaptcache-8b shapes, each kernel against its
              plain torch version (``ref.py``) on the same inputs on the card:
              KIVI quantize/dequantize bit-equal on a (32*512, 1024) f32
@@ -20,15 +21,19 @@ stops the run with a non-zero exit when it fails:
              a 32-token chunk over 4096 packed tokens) for 8/4/2 bits and
              valid lengths T, partial and 0, within rtol 1e-4 / atol 2e-4,
              with bytes past the valid length set to 255 changing nothing;
-             flash_attention (S 4096, 32 heads over 8 KV heads) for f32 and
-             bf16 inputs within the same tolerance. Each is timed with CUDA
-             events (warm-up, a synchronize on every repetition) beside its
-             plain version, its bound and, for flash_attention, PyTorch's
-             ``scaled_dot_product_attention`` in the same type (f32 with
-             TF32 off, and bf16); the attention kernels and their plain
-             versions also as device time (CUDA-graph replays, without the
-             host's share). The selective scan at full-width falcon-mamba-7b
-             shapes (D 8192, N 16): (B 1, S 640), (B 1, S 4096) and (B 2,
+             flash_attention (S 4096, 32 heads over 8 KV heads) for f32
+             inputs (the CUDA-core kernel) and bf16 inputs (the tensor-core
+             kernel, ``flash_fwd_mma``) within the same tolerance. Each is
+             timed with CUDA events (warm-up, a synchronize on every
+             repetition) beside its plain version, its bound and, for
+             flash_attention, PyTorch's ``scaled_dot_product_attention`` in
+             the same type (f32 with TF32 off, and bf16); the attention
+             kernels and their plain versions also as device time
+             (CUDA-graph replays, without the host's share). The bf16
+             row's bound is at the bf16 tensor-core rate, with the floor of
+             the kernel's two-part P (1.5 times the products) beside it.
+             The selective scan at full-width falcon-mamba-7b shapes
+             (D 8192, N 16): (B 1, S 640), (B 1, S 4096) and (B 2,
              S 577, h0 != 0), y and hT within rtol 1e-4 / atol 1e-4, timed
              the same way, beside its byte bound and its SFU floor (one
              exponential a (t, d, n) step at 16 a clock on each SM).
@@ -48,7 +53,8 @@ stops the run with a non-zero exit when it fails:
              bytes, and the model's decode step agrees with its prefill.
 4. fused   — the fused-compute path: the port's ``kernel_bench`` at full
              width measures the fused calibration on the card (the counters
-             of decode_attn, fused_prefill and flash_attention are zeroed
+             of decode_attn, fused_prefill and flash_attention, and the
+             count of flash_attention's tensor-core launches, are zeroed
              just before and must each be above 0 just after); phase 3's
              workload is served again on the same runner with
              ``fused_compute=True`` and the measured residual fraction. The
@@ -101,6 +107,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BPS = 3.35e12            # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_OPS = 495e12            # H100 SXM dense TF32 tensor cores
+BF16_OPS = 989e12            # H100 SXM dense bf16 tensor cores
 SFU_PER_CLOCK = 16           # exponentials a clock on one SM
 TOL = dict(rtol=1e-4, atol=2e-4)
 ARCH = "adaptcache-8b"
@@ -139,6 +146,29 @@ SCAN = (dict(b=1, s=640, d=8192, n=16, h0=0.0),
         dict(b=2, s=577, d=8192, n=16, h0=0.1))
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's kernel-vs-ref
 DECODE_TOL_F32 = 1e-4   # the port's f32 logit tolerance (CPU parity tests)
+
+
+def ptxas_usage(log: str):
+    """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
+    for each kernel in ``nvcc -Xptxas -v`` output; names are demangled by
+    ``c++filt`` where it exists."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            if shutil.which("c++filt"):
+                full = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True).stdout
+                m = re.search(r"(\w+(?:<[^()]*>)?)\(", full)
+                name = m.group(1) if m else name
+        elif "spill stores" in line:
+            spill = ", ".join(x.strip() for x in line.split(",")[1:])
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append((name, f"{regs.group(1) if regs else '?'} registers, "
+                              f"{spill}"))
+    return out
 
 
 def fail(msg: str) -> None:
@@ -201,12 +231,14 @@ def bound_ms(n_bytes: float, n_ops: float, ops_rate: float = F32_OPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(n_bytes: float, flops: float) -> dict:
+def attention_bound(n_bytes: float, flops: float,
+                    ops_rate: float = TF32_OPS) -> dict:
     """The least time for an attention kernel: its bytes over the memory
-    rate or its matrix-product operations over the TF32 tensor-core rate,
-    whichever is larger; beside it the f32 CUDA-core time of the same
-    operations, the rate these first kernels run at."""
-    t, by = bound_ms(n_bytes, flops, TF32_OPS)
+    rate or its matrix-product operations over the tensor cores' rate for
+    its inputs (TF32 for f32, unless given), whichever is larger; beside
+    it the f32 CUDA-core time of the same operations, the rate the f32
+    kernels run at."""
+    t, by = bound_ms(n_bytes, flops, ops_rate)
     return {"bound_ms": t, "bound_by": by, "bytes": n_bytes, "flops": flops,
             "f32_core_ms": flops / F32_OPS * 1e3}
 
@@ -349,20 +381,26 @@ def phase_flash_attention(ops, ref):
     for dtype in (torch.float32, torch.bfloat16):
         qq, kk, vv = (x.to(dtype) for x in (q, k, v))
         got = ops.causal_attention(qq, kk, vv)
-        worst = max(worst, close_err(f"flash_attention {dtype}", got,
-                                     ref.causal_attention_gqa_ref(qq, kk,
-                                                                  vv)))
+        want = ref.causal_attention_gqa_ref(qq, kk, vv)
+        err = close_err(f"flash_attention {dtype}", got, want)
+        worst = max(worst, err)
         es = qq.element_size()
         n_bytes = (b * s * h * hd * es + 2 * b * s * kv * hd * es
                    + b * s * h * hd * 4)
         kern = lambda: ops.causal_attention(qq, kk, vv)
         plain = lambda: ref.causal_attention_gqa_ref(qq, kk, vv)
+        flops = 4 * b * h * hd * s * (s + 1) / 2
+        bf16 = dtype == torch.bfloat16
         row = {"dtype": str(dtype).replace("torch.", ""), "shape": dict(fa),
-               "ms": device_ms(kern, calls=2),
+               "max_abs_err": err, "ms": device_ms(kern, calls=2),
                "plain_ms": device_ms(plain, calls=1),
                "call_ms": time_ms(kern, reps=10),
                "plain_call_ms": time_ms(plain, reps=3),
-               **attention_bound(n_bytes, 4 * b * h * hd * s * (s + 1) / 2)}
+               **attention_bound(n_bytes, flops,
+                                 BF16_OPS if bf16 else TF32_OPS)}
+        if bf16:
+            # the tensor-core kernel multiplies V by P's two bf16 parts
+            row["split_floor_ms"] = 1.5 * flops / BF16_OPS * 1e3
         # the yardstick only: PyTorch's own attention in the same type
         # (f32 without TF32, or bf16), which the port never calls
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
@@ -373,13 +411,16 @@ def phase_flash_attention(ops, ref):
         row["library_max_abs_diff"] = float(
             (lib().transpose(1, 2).float() - got).abs().max())
         rows.append(row)
+        split = (f", two-part P floor {row['split_floor_ms']:.4f}"
+                 if bf16 else "")
         print(f"  flash_attention {row['dtype']} (B, S, H, Kv, hd)=({b}, "
-              f"{s}, {h}, {kv}, {hd}): within tolerance; device "
+              f"{s}, {h}, {kv}, {hd}): within tolerance (max abs err "
+              f"{err:.3g}); device "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, sdpa "
               f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-              f"{row['bound_by']}, f32 cores {row['f32_core_ms']:.4f}); per "
-              f"call {row['call_ms']:.4f} ms (plain "
-              f"{row['plain_call_ms']:.4f})")
+              f"{row['bound_by']}{split}, f32 cores "
+              f"{row['f32_core_ms']:.4f}); per call {row['call_ms']:.4f} ms "
+              f"(plain {row['plain_call_ms']:.4f})")
     return rows, worst
 
 
@@ -733,8 +774,8 @@ def phase_fused(attn_kernels, summary3, serving):
         cal = load_fused_calibration(str(cal_path))
         raw = json.loads(cal_path.read_text())
     bench_s = time.perf_counter() - t0
-    launches = {name: mod.LAUNCHES[name]
-                for name, mod in attn_kernels.items()}
+    launches = {name: n for mod in attn_kernels.values()
+                for name, n in mod.LAUNCHES.items()}
     rows = [r for r in buf.getvalue().splitlines() if r]
     print(f"  kernel_bench (full width) in {bench_s:.1f} s:")
     for r in rows:
@@ -951,9 +992,8 @@ def main() -> int:
     print(f"  built {len(built)} libraries in parallel in {build_s:.1f} s")
     for path, log in built:
         print(f"  {path.relative_to(ROOT)}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
+        for kname, usage in ptxas_usage(log):
+            print(f"    ptxas {kname}: {usage}")
 
     print("[2/5] kernels against the plain version")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
@@ -997,19 +1037,25 @@ def main() -> int:
                 "bound_by": row[f"{op}_bound_by"],
                 "library_ms": None,
             })
+    cases = []
     for kname, (rows, err) in timed_rows.items():
         # the main path's case: 4-bit KIVI prefix; f32 flash attention;
         # the scan at (B 1, S 640)
         row = rows[0] if kname in ("flash_attention", "selective_scan") \
             else next(r for r in rows if r["bits"] == MAIN_BITS)
+        cases.append((kname, kname, row, row.get("max_abs_err", err), kname))
+    # flash attention's bf16 row: the tensor-core kernel, its own count
+    bf16_row = timed_rows["flash_attention"][0][1]
+    cases.append(("flash_attention_bf16", "flash_attention", bf16_row,
+                  bf16_row["max_abs_err"], "flash_attention_mma"))
+    counts = {**fused["launches"], **mamba["launches"]}
+    for ename, kname, row, err, count in cases:
         entries.append({
-            "name": kname,
+            "name": ename,
             "route": "cuda",
             "source": SOURCES[kname],
             "replaces": REPLACES[kname],
-            "launches": (mamba["launches"][kname]
-                         if kname == "selective_scan"
-                         else fused["launches"][kname]),
+            "launches": counts[count],
             "max_abs_err": err,
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

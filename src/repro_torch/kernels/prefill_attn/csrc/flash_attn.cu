@@ -5,22 +5,55 @@
 // src/repro/kernels/prefill_attn/kernel.py:73 together with the GQA
 // wrapper ops.causal_attention (src/repro/kernels/prefill_attn/ops.py),
 // which repeats each KV head over its query heads in memory first. Here
-// the kernel reads the model layout directly: q (B, S, H, hd), k and v
-// (B, S, Kv, hd), f32 or bf16, computed in f32; out (B, S, H, hd) f32.
-// Query head h reads KV head h / (H / Kv), so no repeated copy exists.
+// the kernels read the model layout directly: q (B, S, H, hd), k and v
+// (B, S, Kv, hd), f32 or bf16; out (B, S, H, hd) f32. Query head h reads
+// KV head h / (H / Kv), so no repeated copy exists. Scores are scaled by
+// hd^-0.5, masked with the reference's finite -1e30 above the diagonal
+// and -inf past S; out = acc / max(l, 1e-30).
 //
-// What bounds it: operations. Causal attention does 4 hd S(S+1)/2
-// operations per (batch, head) against 3 S hd input values; at S = 4096
-// that is thousands of operations a byte. With f32 FFMA on the CUDA cores
-// (no TF32, so the tolerance of the reference's own tests holds) the
-// floor is 67 TFLOP/s: about 2 ms for B = 1, H = 32, hd = 128. The tensor
-// cores (wgmma) would lower it many times; they are later work.
-// What the design does about it: one block per (32 query rows, head,
-// batch), heaviest row blocks first; it walks key tiles of 32 up to its
-// last row only, so tiles above the diagonal cost nothing, and masks the
-// diagonal tile with -1e30 as the reference does. Key and value tiles are
-// staged in shared memory as f32 and serve all 32 rows (flash_tile.cuh).
+// What bounds them: operations. Causal attention does 4 hd S(S+1)/2
+// operations per (batch, head) against 3 S hd input values: at B = 1,
+// S = 4096, H = 32, hd = 128 that is 1.375e11 operations, thousands a
+// byte. The entry picks a kernel by type and shape:
+//
+// flash_fwd (f32 inputs, and bf16 whose hd is not a multiple of 16):
+// f32 FFMA on the CUDA cores (no TF32, so the reference's tolerance
+// holds), floor 67 TFLOP/s, about 2 ms at the shape above. One block per
+// (32 query rows, head, batch), heaviest row blocks first; key tiles of
+// 32 up to the block's last row only, staged in shared memory as f32 and
+// shared by all 32 rows (flash_tile.cuh); the diagonal tile is masked.
+//
+// flash_fwd_mma<HD> (bf16 inputs, hd 16, 32, 64 or 128, 16-byte aligned):
+// the bf16 tensor cores through mma.sync m16n8k16 with f32 accumulators.
+// Bound: 1.375e11 operations at 989 TFLOP/s dense bf16 is 0.139 ms; the
+// two-part P below does 1.5 times the MMA work, 0.208 ms. The design:
+//  - one block of 4 warps per (64 query rows, head, batch), heaviest
+//    first; each warp owns 16 rows, the MMA's m16. Q is copied once into
+//    shared memory and each warp keeps its A fragments in registers
+//    (ldmatrix.x4) for the whole key loop;
+//  - K and V come in tiles of 64 keys through a ring of kStages shared
+//    buffers filled by 16-byte cp.async.cg, so tile j + 1 is in flight
+//    while tile j is computed; rows past S are zero-filled (src-size 0).
+//    Shared rows are padded by 8 bf16, so the 8 row addresses of every
+//    ldmatrix fall in distinct bank groups;
+//  - S = Q K^T by MMA with K's B fragments from ldmatrix; the scale, the
+//    mask (only on tiles that reach past a warp's first row) and the
+//    online softmax stay in registers: a row lives in the 4 lanes of a
+//    quad, so its max takes two shuffles. The scores are kept in base 2
+//    (scaled by hd^-0.5 log2 e), so each exponential is one exp2f (2 ulp):
+//    against the plain version it errs as little as expf (max abs 5.6e-6
+//    against 5.5e-6 at the shape above) in 6 % less time on an H100;
+//  - P V with a two-part P: p = hi + lo, hi = bf16(p), lo = bf16(p - hi),
+//    both multiplied by V (B fragments from ldmatrix.trans) into one f32
+//    accumulator. The pair keeps 16 significant bits of p; a single bf16
+//    P errs by about 2e-3 and misses rtol 1e-4 / atol 2e-4 at every size
+//    (tests/test_torch_prefill_attn.py emulates both). The scores'
+//    accumulator layout is the next MMA's A layout, so P never touches
+//    shared memory; l sums the f32 p;
+//  - the finish divides by max(l, 1e-30) and, after one shuffle between
+//    neighbouring lanes, stores 4 f32 of a row per lane (16 bytes).
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "../../csrc/flash_tile.cuh"
 
@@ -86,12 +119,326 @@ cudaError_t launch(const void* q, const void* k, const void* v, float* out,
   return cudaGetLastError();
 }
 
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarpsMma = 4;
+constexpr int kThreadsMma = 32 * kWarpsMma;
+constexpr int kRows = 16 * kWarpsMma;   // query rows a block, 16 a warp
+constexpr int kKeys = 64;               // keys a K/V tile
+constexpr int kStages = 2;              // K/V tiles in the ring
+constexpr int kPad = 8;                 // bf16 of padding a shared row
+
+// Shared memory of a block: Q (kRows rows) | kStages x (K tile, V tile),
+// every row HD + kPad bf16.
+template <int HD>
+constexpr int smem_bytes() {
+  return (kRows + 2 * kStages * kKeys) * (HD + kPad) *
+         static_cast<int>(sizeof(bf16));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, bypassing L1; zeros when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Two f32 values of neighbouring columns as a two-part bf16 pair: hi
+// rounds each value to bf16, lo rounds what hi left out.
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// Copy rows [t0, t0 + ROWS) of a (S, HD) bf16 matrix whose row t starts at
+// src + t * stride into the shared rows (HD + kPad bf16) at byte address
+// dst, zeros past S. Each thread keeps one 16-byte column.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(const bf16* __restrict__ src,
+                                          int64_t stride, int t0, int S,
+                                          uint32_t dst) {
+  constexpr int kChunks = HD / 8;                    // 16-byte chunks a row
+  constexpr int kStep = kThreadsMma / kChunks;       // rows a pass
+  static_assert(ROWS % kStep == 0, "a pass covers whole rows");
+  const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
+  src += c * 8;
+  dst += 2 * (r0 * (HD + kPad) + c * 8);
+#pragma unroll
+  for (int i = 0; i < ROWS / kStep; ++i) {
+    const int t = t0 + r0 + i * kStep;
+    const bool valid = t < S;
+    cp_async16(dst + 2 * i * kStep * (HD + kPad),
+               src + static_cast<int64_t>(valid ? t : 0) * stride, valid);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsMma, 2)
+    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, float* __restrict__ out,
+                  int S, int H, int Kv, float scale) {
+  constexpr int kLd = HD + kPad;
+  extern __shared__ float4 smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);
+  // byte address of the ring; stage s: K at tile 2s, V at tile 2s + 1
+  const uint32_t kv_s = smem_addr(q_s + kRows * kLd);
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / Kv);
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(Kv) * HD;
+  const int64_t q_base = static_cast<int64_t>(b) * S * q_stride +
+                         static_cast<int64_t>(h) * HD;
+  const int64_t kv_base = static_cast<int64_t>(b) * S * kv_stride +
+                          static_cast<int64_t>(kvh) * HD;
+  const bf16* kg = k + kv_base;
+  const bf16* vg = v + kv_base;
+  const int n_tiles = (min(S, r0 + kRows) + kKeys - 1) / kKeys;
+  constexpr uint32_t kTileBytes = kKeys * kLd * sizeof(bf16);
+  auto k_tile = [&](int s) { return kv_s + (2 * s) * kTileBytes; };
+  auto v_tile = [&](int s) { return kv_s + (2 * s + 1) * kTileBytes; };
+  auto load_kv = [&](int j) {
+    if (j < n_tiles) {
+      const int s = j % kStages;
+      load_tile<HD, kKeys>(kg, kv_stride, j * kKeys, S, k_tile(s));
+      load_tile<HD, kKeys>(vg, kv_stride, j * kKeys, S, v_tile(s));
+    }
+    cp_async_commit();   // an empty group keeps the count in step
+  };
+
+  // the first copy group holds Q and tile 0; kStages - 1 tiles in flight
+  load_tile<HD, kRows>(q + q_base, q_stride, r0, S, smem_addr(q_s));
+  for (int j = 0; j < kStages - 1; ++j) load_kv(j);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;   // a quad shares a row
+  const int row0 = r0 + 16 * warp;          // the warp's first row
+  // scores in base 2, exp(x) = exp2(x log2 e): m holds base-2 maxima
+  const float scale2 = scale * 1.4426950408889634f;
+
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  uint32_t qf[HD / 16][4];
+  {
+    const bf16* base =
+        q_s + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+        8 * (lane >> 4);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldsm_x4(smem_addr(base + 16 * kk), qf[kk]);
+  }
+  // the rows of a lane's accumulators: g (elements 0, 1) and g + 8 (2, 3)
+  float o[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+    o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+  float m[2] = {flash::kNegInf, flash::kNegInf};
+  float l[2] = {0.0f, 0.0f};   // this lane's part of the row sums
+
+  // lane offsets of the ldmatrix row addresses within a tile, in bytes
+  const uint32_t k_off =
+      2 * (((lane & 7) + 8 * (lane >> 4)) * kLd + 8 * ((lane >> 3) & 1));
+  const uint32_t v_off =
+      2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 8 * (lane >> 4));
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();         // tile j is in; every warp is done with j - 1
+    load_kv(j + kStages - 1);   // into the stage tile j - 1 used
+    const uint32_t ks = k_tile(j % kStages) + k_off;
+    const uint32_t vs = v_tile(j % kStages) + v_off;
+
+    float sc[kKeys / 8][4];
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; n += 2) {
+        uint32_t kf[4];
+        ldsm_x4(ks + 2 * (8 * n * kLd + 16 * kk), kf);
+        mma_bf16(sc[n], qf[kk], kf[0], kf[1]);
+        mma_bf16(sc[n + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    const int t0 = j * kKeys;
+    const bool masked = t0 + kKeys - 1 > row0;
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale2;
+        if (masked) {
+          const int t = t0 + 8 * n + 2 * tq + (e & 1);
+          const int r = row0 + g + 8 * (e >> 1);
+          x = t >= S ? -INFINITY : (t > r ? flash::kNegInf : x);
+        }
+        sc[n][e] = x;
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[n][0], sc[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[n][2], sc[n][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) {
+      o[d][0] *= alpha[0];
+      o[d][1] *= alpha[0];
+      o[d][2] *= alpha[1];
+      o[d][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[n][e] - m[e >> 1]);
+        sc[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+
+    // P (16 x 64) V (64 x HD): 16 keys a step, P's A fragment from the
+    // scores of n-tiles 2kk and 2kk + 1
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split2(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split2(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int d = 0; d < HD / 8; d += 2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vs + 2 * (16 * kk * kLd + 8 * d), vf);
+        mma_bf16(o[d], ph, vf[0], vf[1]);
+        mma_bf16(o[d], pl, vf[0], vf[1]);
+        mma_bf16(o[d + 1], ph, vf[2], vf[3]);
+        mma_bf16(o[d + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();   // no copy may outlive the block
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.0f / fmaxf(l[i], 1e-30f);
+  }
+  // an even lane of a pair stores row g, an odd one row g + 8: 4 columns
+  // each, the two it holds and the two its neighbour sends
+  const bool odd = tq & 1;
+  const int r = row0 + g + (odd ? 8 : 0);
+  const float w = odd ? inv[1] : inv[0];
+  float* orow = out + q_base + static_cast<int64_t>(r) * q_stride +
+                2 * (tq & ~1);
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    const float s0 =
+        __shfl_xor_sync(0xffffffffu, odd ? o[d][0] : o[d][2], 1);
+    const float s1 =
+        __shfl_xor_sync(0xffffffffu, odd ? o[d][1] : o[d][3], 1);
+    const float4 val =
+        odd ? make_float4(s0 * w, s1 * w, o[d][2] * w, o[d][3] * w)
+            : make_float4(o[d][0] * w, o[d][1] * w, s0 * w, s1 * w);
+    if (r < S) *reinterpret_cast<float4*>(orow + 8 * d) = val;
+  }
+}
+
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       float* out, int B, int S, int H, int Kv, float scale,
+                       cudaStream_t stream) {
+  auto kernel = flash_fwd_mma<HD>;
+  constexpr int smem = smem_bytes<HD>();
+  static const cudaError_t smem_err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem_err != cudaSuccess) return smem_err;
+  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  kernel<<<grid, kThreadsMma, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), out, S, H, Kv, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace mma
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 // q (B, S, H, hd), k/v (B, S, Kv, hd), all f32 (dtype 0) or all bf16
-// (dtype 1), contiguous; out (B, S, H, hd) f32. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue, without
-// launching, for a shape the kernel does not take).
+// (dtype 1), contiguous; out (B, S, H, hd) f32. bf16 with hd a multiple of
+// 16 and every pointer 16-byte aligned takes the tensor-core kernel, every
+// other input the CUDA-core one. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue, without launching, for a shape neither
+// kernel takes).
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           void* out, int B, int S, int H, int Kv, int hd,
                           int dtype, float scale, void* stream) {
@@ -101,9 +448,26 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0
-          ? launch<float>(q, k, v, o, B, S, H, Kv, hd, scale, st)
-          : launch<__nv_bfloat16>(q, k, v, o, B, S, H, Kv, hd, scale, st);
+  cudaError_t err;
+  if (dtype == 1 && hd % 16 == 0 && aligned16(q) && aligned16(k) &&
+      aligned16(v) && aligned16(out)) {
+    switch (hd) {
+      case 16:
+        err = mma::launch_mma<16>(q, k, v, o, B, S, H, Kv, scale, st);
+        break;
+      case 32:
+        err = mma::launch_mma<32>(q, k, v, o, B, S, H, Kv, scale, st);
+        break;
+      case 64:
+        err = mma::launch_mma<64>(q, k, v, o, B, S, H, Kv, scale, st);
+        break;
+      default:
+        err = mma::launch_mma<128>(q, k, v, o, B, S, H, Kv, scale, st);
+    }
+  } else {
+    err = dtype == 0 ? launch<float>(q, k, v, o, B, S, H, Kv, hd, scale, st)
+                     : launch<__nv_bfloat16>(q, k, v, o, B, S, H, Kv, hd,
+                                             scale, st);
+  }
   return static_cast<int>(err);
 }

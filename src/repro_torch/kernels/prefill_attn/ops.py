@@ -4,8 +4,12 @@ that picks a path.
 A tensor on the CPU goes to the plain version
 (``ref.causal_attention_gqa_ref``: each KV head repeated over its query
 heads, as the reference does); a CUDA tensor goes to the hand-written
-kernel (``kernel.py``), which reads KV head ``h // g`` in place and builds
-no repeated copy. Nothing falls back from one to the other.
+kernels (``kernel.py``), which read KV head ``h // g`` in place and build
+no repeated copy. On the card, inputs that are all bf16 stay bf16, and
+those whose head dim is a multiple of 16 (16, 32, 64, 128) reach the
+tensor-core kernel; f32 inputs, mixed types (widened to f32) and bf16 at
+another head dim reach the CUDA-core kernel. Anything else raises: nothing
+falls back from one path to another.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.fused_prefill import ops as fused_ops
 from repro_torch.kernels.kivi import ref as tkivi
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.prefill_attn import kernel as prefill_kernel
 from repro_torch.kernels.prefill_attn import ops as prefill_ops
 
 TOL = dict(rtol=1e-4, atol=2e-4)
@@ -122,16 +123,31 @@ def test_fused_prefill_matches_plain():
 
 @pytest.mark.cuda
 def test_flash_attention_matches_plain():
-    """On the card: the CUDA kernel against the plain version, f32 and
-    bf16, GQA and ragged lengths."""
+    """On the card: the CUDA kernels against the plain version, f32 and
+    bf16, GQA and ragged lengths: S at each edge of a 64-key tile (1, 63,
+    64, 65, 127), batch 2 without GQA, every head dim the tensor-core
+    kernel takes (16, 32, 64, 128), q scaled by 8 (a peaked softmax rounds
+    P hardest), and bf16 at hd 8, which stays on the CUDA-core kernel.
+    bf16 at hd 16-128 must take the tensor-core kernel, f32 never."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for shape in ((2, 96, 4, 2, 64), (1, 301, 8, 2, 128), (1, 64, 4, 4, 16)):
+    shapes = [(2, 96, 4, 2, 64), (1, 301, 8, 2, 128), (1, 64, 4, 4, 16),
+              (1, 200, 4, 1, 32), (2, 130, 4, 4, 64)]
+    shapes += [(1, s, 4, 2, 128) for s in (1, 63, 64, 65, 127)]
+    cases = [(shape, 1.0) for shape in shapes]
+    cases += [((1, 257, 4, 2, 128), 8.0), ((1, 77, 4, 2, 8), 1.0)]
+    for shape, q_scale in cases:
         for tdt in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.from_numpy(a).to(tdt) for a in qkv(24, *shape))
+            q, k, v = qkv(24, *shape)
+            q, k, v = (torch.from_numpy(a).to(tdt) for a in (q * q_scale,
+                                                             k, v))
             want = prefill_ops.causal_attention(q, k, v)
+            before = prefill_kernel.LAUNCHES["flash_attention_mma"]
             got = prefill_ops.causal_attention(q.cuda(), k.cuda(), v.cuda())
             torch.testing.assert_close(got.cpu(), want, **TOL)
+            mma = tdt == torch.bfloat16 and shape[-1] % 16 == 0
+            assert (prefill_kernel.LAUNCHES["flash_attention_mma"]
+                    - before) == int(mma), (shape, tdt)
 
 
 def falcon_scan_inputs(seed, b, s, d, n, h0_scale=1.0):

@@ -6,8 +6,11 @@ tensors; it is held against the reference's jitted ``ops`` (its jnp path on
 the CPU) for f32 and bf16 inputs (computed in f32 in both), and against
 the Pallas kernel in interpret mode on one case, at rtol 1e-4 / atol 2e-4.
 The ``cuda``-marked test holds the CUDA kernel to the plain version on the
-card.
+card. ``mma_rounding`` emulates the bf16 tensor-core kernel's arithmetic
+on the CPU, to show why its P is split in two bf16 parts.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,3 +85,54 @@ def test_ops_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.flash_attention(q, k, v)
 
+
+
+def mma_rounding(q, k, v, parts: int = 2, keys: int = 64):
+    """The arithmetic of the tensor-core kernel (``flash_fwd_mma``) in
+    torch: bf16 q/k/v, key tiles of ``keys`` with an online softmax in f32
+    on base-2 scores, and P rounded to bf16 before P V, as one part or as
+    two (hi = bf16(p), lo = bf16(p - hi)), each product summed in f32.
+    (B, S, H, hd) f32 out."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    planes = lambda x: x.float().transpose(1, 2)
+    qp = planes(q)
+    kp, vp = (planes(x).repeat_interleave(g, dim=1) for x in (k, v))
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, hd))
+    rows = torch.arange(s).reshape(s, 1)
+    scale2 = hd ** -0.5 * math.log2(math.e)
+    for t0 in range(0, s, keys):
+        kt, vt = kp[:, :, t0:t0 + keys], vp[:, :, t0:t0 + keys]
+        sc = (qp @ kt.transpose(-1, -2)) * scale2
+        cols = torch.arange(t0, t0 + kt.shape[2]).reshape(1, -1)
+        sc = torch.where(cols <= rows, sc, torch.full_like(sc, -1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp2(sc - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vt
+        if parts == 2:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 4, 2, 64), (1, 70, 6, 1, 32),
+                                   (1, 64, 4, 4, 16)])
+def test_two_part_p_holds_the_tolerance(shape):
+    """The tensor-core kernel's rounding, emulated, against the JAX
+    package's attention on the same bf16 inputs: with P in two bf16 parts
+    it holds rtol 1e-4 / atol 2e-4; with P in one it does not, which is
+    why the kernel pays for the second product."""
+    q, k, v = (jnp.asarray(a, jnp.bfloat16)
+               for a in qkv(sum(shape), *shape))
+    want = np.asarray(jops.causal_attention(q, k, v))
+    inputs = [torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+              for x in (q, k, v)]
+    np.testing.assert_allclose(mma_rounding(*inputs).numpy(), want, **TOL)
+    one = mma_rounding(*inputs, parts=1).numpy()
+    assert not np.allclose(one, want, **TOL)
