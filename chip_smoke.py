@@ -16,11 +16,18 @@ stops the run with a non-zero exit when it fails:
 2. kernels — at full-width adaptcache-8b shapes, each kernel against its
              plain torch version (``ref.py``) on the same inputs on the card:
              KIVI quantize/dequantize bit-equal on a (32*512, 1024) f32
-             matrix for 8/4/2 bits and both groupings; decode_attn (8 planes,
+             matrix for 8/4/2 bits and both groupings, timed as device time
+             (CUDA-graph replays) beside the time of one call (events, the
+             host's wrapper included), and quantize bit-equal at layouts
+             outside the model's (K groups staged in pieces, V groups of
+             24, of 3 bytes' codes and of 1024); decode_attn (8 planes,
              4 query rows, 4096 tokens, hd 128) and fused_prefill (32 planes,
-             a 32-token chunk over 4096 packed tokens) for 8/4/2 bits and
+             a 32-token chunk over 4096 packed tokens; at hd 128 its
+             tensor-core kernel ``fused_mma``) for 8/4/2 bits and
              valid lengths T, partial and 0, within rtol 1e-4 / atol 2e-4,
-             with bytes past the valid length set to 255 changing nothing;
+             with bytes past the valid length set to 255 changing nothing,
+             and the same checks of its CUDA-core kernel ``fused_split``
+             at hd 8 and at a K group of 12;
              flash_attention (S 4096, 32 heads over 8 KV heads) for f32
              inputs (the CUDA-core kernel) and bf16 inputs (the tensor-core
              kernel, ``flash_fwd_mma``) within the same tolerance. Each is
@@ -30,8 +37,12 @@ stops the run with a non-zero exit when it fails:
              the same type (f32 with TF32 off, and bf16); the attention
              kernels and their plain versions also as device time
              (CUDA-graph replays, without the host's share). The bf16
-             row's bound is at the bf16 tensor-core rate, with the floor of
-             the kernel's two-part P (1.5 times the products) beside it.
+             flash row's bound is at the bf16 tensor-core rate, with the
+             floor of the kernel's two-part P (1.5 times the products)
+             beside it; so is fused_prefill's, with the floor of its three
+             products of two-part operands (3 times the products). At 4
+             bits, decode_attn's and fused_prefill's time is divided
+             between their split pass and merge by ``torch.profiler``.
              The selective scan at full-width falcon-mamba-7b shapes
              (D 8192, N 16): (B 1, S 640), (B 1, S 4096) and (B 2,
              S 577, h0 != 0), y and hT within rtol 1e-4 / atol 1e-4, timed
@@ -54,8 +65,10 @@ stops the run with a non-zero exit when it fails:
 4. fused   — the fused-compute path: the port's ``kernel_bench`` at full
              width measures the fused calibration on the card (the counters
              of decode_attn, fused_prefill and flash_attention, and the
-             count of flash_attention's tensor-core launches, are zeroed
-             just before and must each be above 0 just after); phase 3's
+             counts of flash_attention's and fused_prefill's tensor-core
+             launches, are zeroed just before and must each be above 0 just
+             after; every fused_prefill call, all at hd 128, must have
+             taken the tensor-core kernel); phase 3's
              workload is served again on the same runner with
              ``fused_compute=True`` and the measured residual fraction. The
              summary must be complete and finite, the residual in [0, 1],
@@ -226,6 +239,24 @@ def device_ms(fn, calls: int) -> float:
     return float(np.median(times))
 
 
+def kernel_us(fn, calls: int = 20) -> dict:
+    """Device time of each kernel that ``calls`` calls of ``fn`` launch, in
+    microseconds a call, by ``torch.profiler`` (CUDA activity): how a
+    call's time divides between its kernels (a split pass and its merge)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = lambda e: (getattr(e, "device_time_total", 0)
+                     or getattr(e, "cuda_time_total", 0))
+    return {e.key[:60]: dev(e) / calls for e in prof.key_averages()
+            if dev(e) > 0}
+
+
 def bound_ms(n_bytes: float, n_ops: float, ops_rate: float = F32_OPS):
     t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -260,16 +291,16 @@ def close_err(what: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def packed_planes(seed: int, p: int, t: int, hd: int, bits: int,
-                  group: int):
+                  group: int, v_group: int | None = None):
     """Random K and V planes (P, T, hd), KIVI-packed on the card in the
     decode_attn layout: [k_packed, k_scale, k_zero, v_packed, v_scale,
-    v_zero]."""
+    v_zero]; V in groups of ``v_group`` where given, else ``group``."""
     from repro_torch.launch.kernel_bench import quantize_planes
     gen = torch.Generator(device="cuda").manual_seed(seed)
     k = torch.randn((p, t, hd), generator=gen, device="cuda")
     v = torch.randn((p, t, hd), generator=gen, device="cuda")
     return (list(quantize_planes(k, bits, group, 0)[:3])
-            + list(quantize_planes(v, bits, group, 1)[:3]))
+            + list(quantize_planes(v, bits, v_group or group, 1)[:3]))
 
 
 def valid_lengths(p: int, t: int):
@@ -296,12 +327,16 @@ def spoil_tail(packs, cur: torch.Tensor, bits: int):
 
 
 def phase_packed_attention(name: str, dims: dict, kernel_fn, plain_fn,
-                           io_floats: int, flops: float, seed: int):
+                           io_floats: int, flops: float, seed: int,
+                           ops_rate: float = TF32_OPS, split: float = 0.0):
     """decode_attn or fused_prefill at ``dims``: the kernel against its
     plain version for 8/4/2 bits and every valid-length case, the tail
     check, and the timings. ``kernel_fn(packs, cur_len, **kw)`` and
     ``plain_fn`` run one call on the packed planes; ``io_floats`` counts
-    the f32 values of the call's dense inputs and output."""
+    the f32 values of the call's dense inputs and output. The bound takes
+    the products at ``ops_rate``; a kernel that multiplies two-part bf16
+    operands gets the floor of its ``split`` times the products beside
+    it."""
     p, t, hd, g = dims["p"], dims["t"], dims["hd"], dims["group"]
     lens = valid_lengths(p, t)
     rows, worst = [], 0.0
@@ -328,14 +363,22 @@ def phase_packed_attention(name: str, dims: dict, kernel_fn, plain_fn,
                "plain_ms": device_ms(plain, calls=5),
                "call_ms": time_ms(kern, reps=20),
                "plain_call_ms": time_ms(plain, reps=5),
-               **attention_bound(n_bytes, flops)}
+               **attention_bound(n_bytes, flops, ops_rate)}
+        if bits == MAIN_BITS:
+            row["kernel_us"] = kernel_us(kern)
+        floor = ""
+        if split:
+            row["split_floor_ms"] = split * flops / BF16_OPS * 1e3
+            floor = f", two-part floor {row['split_floor_ms']:.4f}"
         rows.append(row)
         print(f"  {name} bits={bits} {dims}: within tolerance for cur_len "
               f"T / partial / 0, tail bytes ignored; device "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
-              f"{row['bound_ms']:.4f} by {row['bound_by']}, f32 cores "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}{floor}, f32 cores "
               f"{row['f32_core_ms']:.4f}); per call {row['call_ms']:.4f} "
               f"ms (plain {row['plain_call_ms']:.4f})")
+        for kname, us in row.get("kernel_us", {}).items():
+            print(f"    {us:9.3f} us a call  {kname}")
     return rows, worst
 
 
@@ -366,7 +409,50 @@ def phase_fused_prefill(ops, ref):
         lambda packs, cur, **kw: ref.chunk_prefill_planes_ref(
             q, *packs, kc, vc, cur, **kw),
         io_floats=4 * p * c * hd, flops=4 * p * c * hd * (t + (c + 1) / 2),
-        seed=10)
+        seed=10, ops_rate=BF16_OPS, split=3.0)
+
+
+def phase_fused_split(ops, ref, kernel):
+    """fused_prefill's CUDA-core kernel, ``fused_split``, which takes the
+    layouts the tensor-core kernel does not: hd 8, and at hd 128 a K group
+    of 12 tokens (not a multiple of 8), each at P 32, C 32 over about 4096
+    packed tokens. Within tolerance against the plain version for 8/4/2
+    bits and valid lengths T, partial and 0, tail bytes ignored; the
+    tensor-core count must not move. Returns the largest error."""
+    p, c = FUSED["p"], FUSED["c"]
+    worst = 0.0
+    for hd, t, kg, vg in ((8, 4096, 64, 8), (128, 4080, 12, 64)):
+        gen = torch.Generator(device="cuda").manual_seed(12 + hd)
+        q, kc, vc = (torch.randn((p, c, hd), generator=gen, device="cuda")
+                     for _ in range(3))
+        lens = valid_lengths(p, t)
+        before = kernel.LAUNCHES["fused_prefill_mma"]
+        for bits in (8, 4, 2):
+            packs = packed_planes(20 + bits, p, t, hd, bits, kg, vg)
+            kw = dict(bits=bits, k_group=kg, v_group=vg)
+            outs = {}
+            for case, cur in lens.items():
+                outs[case] = ops.chunk_prefill_planes(q, *packs, kc, vc, cur,
+                                                      **kw)
+                worst = max(worst, close_err(
+                    f"fused_split hd={hd} groups {kg}/{vg} bits={bits} "
+                    f"cur_len={case}", outs[case],
+                    ref.chunk_prefill_planes_ref(q, *packs, kc, vc, cur,
+                                                 **kw)))
+            spoiled = spoil_tail(packs, lens["partial"], bits)
+            if not torch.equal(ops.chunk_prefill_planes(
+                    q, *spoiled, kc, vc, lens["partial"], **kw),
+                    outs["partial"]):
+                fail(f"fused_split hd={hd} bits={bits}: bytes past cur_len "
+                     "changed the output")
+        if kernel.LAUNCHES["fused_prefill_mma"] != before:
+            fail(f"fused_prefill at hd={hd}, groups {kg}/{vg} took the "
+                 "tensor-core kernel")
+        print(f"  fused_split (P, C, T, hd)=({p}, {c}, {t}, {hd}), groups "
+              f"{kg}/{vg}: within tolerance for 8/4/2 bits and cur_len T / "
+              f"partial / 0, tail bytes ignored, none on fused_mma")
+    print(f"  fused_split max abs err {worst:.3g}")
+    return worst
 
 
 def phase_flash_attention(ops, ref):
@@ -543,17 +629,23 @@ def phase_kernels(kernel, ref, Quantized):
                                n_el * QUANT_OPS)
             d_bound = bound_ms(code_bytes + side_bytes + n_el * 4,
                                n_el * DEQUANT_OPS)
+            quant = lambda: kernel.quantize(x, bits, gs, axis)
+            dequant = lambda: kernel.dequantize(packed, scale, zero, bits,
+                                                gs, axis, x.shape[axis])
+            # ms: device time (CUDA-graph replays); call_ms: one call
+            # between events, the host's wrapper included; the plain
+            # versions per call (quantize_ref copies a host scalar to the
+            # card, which a CUDA graph cannot capture)
             row = {
                 "bits": bits, "axis": axis, "shape": [rows, cols],
-                "quantize_ms": time_ms(
-                    lambda: kernel.quantize(x, bits, gs, axis), reps=20),
+                "quantize_ms": device_ms(quant, calls=20),
+                "quantize_call_ms": time_ms(quant, reps=20),
                 "quantize_plain_ms": time_ms(
                     lambda: ref.quantize_ref(x, bits, gs, axis), reps=5),
                 "quantize_bound_ms": q_bound[0],
                 "quantize_bound_by": q_bound[1],
-                "dequantize_ms": time_ms(
-                    lambda: kernel.dequantize(packed, scale, zero, bits, gs,
-                                              axis, x.shape[axis]), reps=20),
+                "dequantize_ms": device_ms(dequant, calls=20),
+                "dequantize_call_ms": time_ms(dequant, reps=20),
                 "dequantize_plain_ms": time_ms(
                     lambda: ref.dequantize_ref(qt), reps=5),
                 "dequantize_bound_ms": d_bound[0],
@@ -561,13 +653,42 @@ def phase_kernels(kernel, ref, Quantized):
             }
             results.append(row)
             print(f"  bits={bits} axis={axis} (T*L, F)=({rows}, {cols}): "
-                  f"bit-equal; quantize {row['quantize_ms']:.4f} ms "
-                  f"(plain {row['quantize_plain_ms']:.4f}, bound "
-                  f"{row['quantize_bound_ms']:.4f}); dequantize "
-                  f"{row['dequantize_ms']:.4f} ms (plain "
+                  f"bit-equal; quantize device {row['quantize_ms']:.4f} ms "
+                  f"(per call {row['quantize_call_ms']:.4f}, plain "
+                  f"{row['quantize_plain_ms']:.4f}, bound "
+                  f"{row['quantize_bound_ms']:.4f}); dequantize device "
+                  f"{row['dequantize_ms']:.4f} ms (per call "
+                  f"{row['dequantize_call_ms']:.4f}, plain "
                   f"{row['dequantize_plain_ms']:.4f}, bound "
                   f"{row['dequantize_bound_ms']:.4f})")
     return results, worst
+
+
+def phase_kivi_layouts(kernel, ref):
+    """KIVI quantize bit-equal to the plain version at layouts outside the
+    model's, which take the kernels' other branches: K groups of 320 and
+    640 rows (staged in two and three pieces), V groups of 24 (six units
+    of 4 values on 8 lanes), of 3 bytes' codes (units of 1, 2 or 4 values
+    at 8, 4 or 2 bits) and of 1024 (a lane's units past its first two are
+    read again), for 8/4/2 bits."""
+    for bits in (8, 4, 2):
+        cpb = 8 // bits
+        layouts = ((0, 320, 640, 1024), (0, 640, 1280, 1024),
+                   (1, 24, 4096, 960), (1, 3 * cpb, 4096, 960),
+                   (1, 1024, 512, 4096))
+        for i, (axis, gs, rows, cols) in enumerate(layouts):
+            x = kv_matrix(rows, cols, bits, seed=100 + 10 * bits + i)
+            got = kernel.quantize(x, bits, gs, axis)
+            torch.cuda.synchronize()
+            want = ref.quantize_ref(x, bits, gs, axis)
+            for name, a, b in zip(("packed", "scale", "zero"), got,
+                                  (want.packed, want.scale, want.zero)):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    fail(f"quantize bits={bits} axis={axis} group={gs} "
+                         f"({rows}, {cols}): {name} differs from the plain "
+                         "version")
+        print(f"  quantize bits={bits}: bit-equal at (axis, group, rows, "
+              f"cols) {', '.join(str(lay) for lay in layouts)}")
 
 
 def summarize_profile(events, device_type) -> dict:
@@ -784,6 +905,11 @@ def phase_fused(attn_kernels, summary3, serving):
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         fail(f"the fused-compute path never launched {missing}")
+    # two launches a call; every call is at hd 128, the tensor cores' case
+    if 2 * launches["fused_prefill_mma"] != launches["fused_prefill"]:
+        fail(f"{launches['fused_prefill_mma']} of "
+             f"{launches['fused_prefill'] // 2} fused_prefill calls took the "
+             "tensor-core kernel")
     if not all(math.isfinite(x) and x > 0
                for x in (cal.fused_s, cal.dequant_s, cal.attn_s)):
         fail(f"calibration times not finite and positive: {raw}")
@@ -997,12 +1123,14 @@ def main() -> int:
 
     print("[2/5] kernels against the plain version")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
+    phase_kivi_layouts(kernel, ref)
     timed_rows = {
         "decode_attn": phase_decode_attn(decode_ops, decode_ref),
         "fused_prefill": phase_fused_prefill(fused_ops, fused_ref),
         "flash_attention": phase_flash_attention(flash_ops, flash_ref),
         "selective_scan": phase_selective_scan(scan_ops, scan_ref),
     }
+    fused_split_err = phase_fused_split(fused_ops, fused_ref, fused_kernel)
 
     print("[3/5] serving full-width adaptcache-8b through build_engine")
     summary, launches, wall_s, serving, profile3 = phase_serving()
@@ -1032,6 +1160,7 @@ def main() -> int:
                 "launches": launches[f"{op}_{style}"],
                 "max_abs_err": worst[op],
                 "ms": row[f"{op}_ms"],
+                "call_ms": row[f"{op}_call_ms"],
                 "plain_ms": row[f"{op}_plain_ms"],
                 "bound_ms": row[f"{op}_bound_ms"],
                 "bound_by": row[f"{op}_bound_by"],
@@ -1069,6 +1198,7 @@ def main() -> int:
         "card": smi, "device": name, "torch": torch.__version__,
         "build_s": build_s, "kernel_rows": kernel_rows,
         "timed_rows": {k: v[0] for k, v in timed_rows.items()},
+        "fused_split_max_abs_err": fused_split_err,
         "kernels": entries, "summary": summary, "launches": launches,
         "engine_wall_s": wall_s, "profile_phase3": profile3,
         "fused": fused, "mamba": mamba},

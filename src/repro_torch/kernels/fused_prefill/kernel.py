@@ -5,13 +5,21 @@ Replaces the TPU kernel ``fused_chunk_prefill`` of
 ``src/repro/kernels/fused_prefill/kernel.py``. The kernels live in
 ``csrc/fused_prefill.cu``, which includes decode_attn's
 ``csrc/kivi_planes.cuh`` for the packed layout; its header says what bounds
-them on the card and what the design does about it. The library is built
-at first use by ``kernels/_build.py``; nothing is built or loaded at
-import.
+them on the card and what the design does about it. Its C entry picks the
+kernel by shape: head dims 16, 32, 64 and 128 with both groups multiples
+of 8 and 16-byte aligned pointers take the tensor-core kernel
+(``fused_mma``: each 64-token tile dequantized once in f32, then K, V, q
+and P each split into two bf16 parts and multiplied by ``mma.sync`` as
+three products, the packed tiles through a ``cp.async`` ring), every
+other layout the CUDA-core one
+(``fused_split``). ``tensor_cores`` repeats that choice here, which sets
+the split of the prefix for each kernel. The library is built at first
+use by ``kernels/_build.py``; nothing is built or loaded at import.
 
 ``LAUNCHES["fused_prefill"]`` counts kernel launches: each call launches
 two, the split pass (prefix splits plus the chunk's own block) and the
-merge pass.
+merge pass. ``LAUNCHES["fused_prefill_mma"]`` counts the calls (one a
+call) whose split pass ran on the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -26,8 +34,13 @@ from repro_torch.kernels._build import (CudaLibrary, check_rc, check_tensor,
                                         stream_of)
 from repro_torch.kernels.decode_attn.kernel import packed_shapes, split_len
 
-LAUNCHES: Dict[str, int] = {"fused_prefill": 0}
+LAUNCHES: Dict[str, int] = {"fused_prefill": 0, "fused_prefill_mma": 0}
 ROWS_PER_BLOCK = 32
+MMA_TILE = 64                 # tokens a tile of the tensor-core kernel
+# two blocks for each of the H100's 132 SMs: each block of the tensor-core
+# kernel walks its tiles through a cp.async ring, so a few long splits
+# suffice, and every split adds (C, hd) f32 to the workspace
+MMA_TARGET_BLOCKS = 264
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -38,6 +51,24 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("fused_prefill", Path(__file__).parent, _bind)
+
+
+def tensor_cores(hd: int, k_group: int, v_group: int, *tensors) -> bool:
+    """The C entry's choice of the tensor-core kernel: hd 16, 32, 64 or
+    128, both groups multiples of 8, every tensor 16-byte aligned."""
+    return (hd in (16, 32, 64, 128) and k_group % 8 == 0
+            and v_group % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def mma_split_len(t: int, blocks_per_split: int) -> int:
+    """Tokens per split for the tensor-core kernel: whole 64-token tiles,
+    about MMA_TARGET_BLOCKS blocks in the grid (at least one tile a
+    split)."""
+    n_tiles = math.ceil(t / MMA_TILE)
+    n_splits = max(1, min(n_tiles, MMA_TARGET_BLOCKS
+                          // max(1, blocks_per_split)))
+    return math.ceil(n_tiles / n_splits) * MMA_TILE
 
 
 def chunk_prefill(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
@@ -55,7 +86,10 @@ def chunk_prefill(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
                                               v_group).items():
         check_tensor(name, packed[name], dtype, shape)
     check_tensor("cur_len", cur_len, torch.int32, (p, 1))
-    sl = split_len(t, p * math.ceil(c / ROWS_PER_BLOCK))
+    row_blocks = p * math.ceil(c / ROWS_PER_BLOCK)
+    mma = tensor_cores(hd, k_group, v_group, q, k_chunk, v_chunk,
+                       *packed.values())
+    sl = (mma_split_len if mma else split_len)(t, row_blocks)
     n_splits = math.ceil(t / sl) + 1            # + the chunk's own block
     dev = q.device
     m_ws = torch.empty((p, n_splits, c), dtype=torch.float32, device=dev)
@@ -73,4 +107,5 @@ def chunk_prefill(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
             v_group, sl, hd ** -0.5, stream_of(q))
     check_rc("fused_prefill", rc)
     LAUNCHES["fused_prefill"] += 2
+    LAUNCHES["fused_prefill_mma"] += int(mma)
     return out

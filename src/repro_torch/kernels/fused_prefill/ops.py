@@ -3,9 +3,12 @@ that picks a path.
 
 A tensor on the CPU goes to the plain version
 (``ref.chunk_prefill_planes_ref``: dequantize each plane, then attend); a
-CUDA tensor goes to the hand-written kernel (``kernel.py``), which raises
-on what it cannot take. Nothing falls back from one to the other, and
-there is no ``tb`` (the TPU kernel's VMEM tile).
+CUDA tensor goes to the hand-written kernels (``kernel.py``), which raise
+on what they cannot take. Nothing falls back from one to the other, and
+there is no ``tb`` (the TPU kernel's VMEM tile). On the card, head dims
+16, 32, 64 and 128 with both groups multiples of 8 (the model's, hd 128
+and group 64, among them) run on the tensor cores (``fused_mma``); other
+layouts on the CUDA cores (``fused_split``), within the same tolerance.
 """
 from __future__ import annotations
 

@@ -25,19 +25,37 @@
 //
 // What bounds it: bytes. Quantize reads 4 B per f32 element and writes
 // bits/8 B of codes plus 8 B of scale and zero per group; dequantize reads
-// those and writes 4 B per element. A handful of operations per element
-// is far below the card's ~20 operations per byte of HBM bandwidth in
-// f32, so 3.35 TB/s sets the floor. What the design does about it: each
-// element is read from HBM once and each output written once; the threads
-// of a warp touch neighbouring addresses wherever the layout allows:
-//   * K-style (axis 0, grouped along rows): one thread per (group,
-//     column). Each of its group_size row reads is coalesced across the
-//     warp's 32 neighbouring columns; the second pass over the group
-//     re-reads it from L1/L2, not from HBM.
-//   * V-style (axis 1, grouped along contiguous columns): one thread per
-//     (row, group), walking its group_size contiguous floats.
+// those and writes 4 B per element. At the main shape, a (16384, 1024)
+// f32 matrix at 4 bits in groups of 64, quantize moves 77.6 MB, 0.0232 ms
+// at 3.35 TB/s; a handful of operations per element is far below the
+// card's ~20 f32 operations per byte. So each element is read from device
+// memory once and the threads of a warp touch neighbouring addresses:
+//   * quantize_cols (V-style, axis 1, groups of gs contiguous columns):
+//     the matrix is read as one flat run of groups, each taken by L
+//     neighbouring lanes (L a power of two up to 32) in units of U values
+//     (U = 4 where 4 divides gs, else 2 or 1), lane l taking units l,
+//     l + L, ... At the model's groups (64, and a state's 16) a lane takes
+//     one unit of 4 values, so a warp reads 512 contiguous bytes. min and
+//     max meet by xor shuffles within the L lanes; each lane quantizes
+//     its first two units from registers (a larger group's further units
+//     are read again) and stores each unit's codes as one 4-, 2- or
+//     1-byte word, so a warp's stores are contiguous; the group's first
+//     lane writes scale and zero.
+//   * quantize_rows (K-style, axis 0, groups of gs rows): a block stages
+//     up to 256 rows of a group times 128 columns in shared memory, a warp
+//     reading a row's 512 contiguous bytes; two threads a column take min
+//     and max over half the staged rows each, then each thread packs cpb
+//     rows of a column into a byte from the stage, so a warp stores 32
+//     contiguous bytes of a packed row. A group above 256 rows is staged
+//     in pieces of 256 rows for min and max, then its pieces are packed
+//     last first (the last is still staged; the others are staged again).
+//   * A thread reads its values with 4-byte loads: on an H100 16-byte
+//     loads (where alignment allows) took the same time at the main shape
+//     (PERF.md), and 4-byte loads take any alignment and column count.
+//   * Min and max are exact in any order, and every element takes the
+//     same intrinsics in the same order, so the codes, scales and zeros
+//     are bit-equal to the plain version at every layout.
 //   * Dequantize: one thread per packed byte, writing its cpb values.
-// Vectorised loads, TMA and wider tiles are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,82 +70,196 @@ __device__ __forceinline__ uint32_t quant_code(float v, float zero,
   return static_cast<uint32_t>(fminf(fmaxf(q, 0.0f), qmax));
 }
 
-// K-style: x (rows, cols), groups of gs rows. packed (rows/cpb, cols),
-// scale/zero (rows/gs, cols).
-template <int BITS>
-__global__ void quantize_rows(const float* __restrict__ x,
-                              uint8_t* __restrict__ packed,
-                              float* __restrict__ scale,
-                              float* __restrict__ zero, int64_t n_groups,
-                              int64_t cols, int gs, float inv_levels) {
+constexpr int kHeld = 2;   // units a lane of quantize_cols keeps in registers
+
+// V-style: x (rows, cols) read as n_groups = rows * cols / gs groups of gs
+// contiguous values, group g taken by the 2^shift lanes of threads
+// g * 2^shift ..., in units of U values (U divides gs; cpb divides U).
+// packed (rows, cols/cpb) holds group g's codes from byte g * gs / cpb,
+// scale/zero (rows, cols/gs) its scale and zero at g.
+template <int BITS, int U>
+__global__ void __launch_bounds__(kThreads)
+    quantize_cols(const float* __restrict__ x, uint8_t* __restrict__ packed,
+                  float* __restrict__ scale, float* __restrict__ zero,
+                  int64_t n_groups, int gs, int shift, float inv_levels) {
   constexpr int CPB = 8 / BITS;
   constexpr float QMAX = static_cast<float>((1 << BITS) - 1);
-  const int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                      threadIdx.x;
-  if (idx >= n_groups * cols) return;
-  const int64_t grp = idx / cols;
-  const int64_t col = idx - grp * cols;
-  const float* xg = x + grp * gs * cols + col;
+  static_assert(U % CPB == 0, "a unit's codes fill whole bytes");
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  const int lanes = 1 << shift;
+  const int lane = static_cast<int>(t & (lanes - 1));
+  const int64_t g = t >> shift;
+  // lanes past the end take part in the shuffles (whole groups of them,
+  // since lanes divides 32) and store nothing
+  const bool valid = g < n_groups;
+  const int units = valid ? gs / U : 0;
+  const float* xg = x + g * gs;
 
-  float mn = xg[0];
-  float mx = mn;
-  for (int r = 1; r < gs; ++r) {
-    const float v = xg[r * cols];
-    mn = fminf(mn, v);
-    mx = fmaxf(mx, v);
+  float held[kHeld][U];
+  float mn = INFINITY, mx = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const int u = lane + k * lanes;
+    if (u < units) {
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        held[k][j] = xg[u * U + j];
+        mn = fminf(mn, held[k][j]);
+        mx = fmaxf(mx, held[k][j]);
+      }
+    }
   }
+  for (int u = lane + kHeld * lanes; u < units; u += lanes) {
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      mn = fminf(mn, xg[u * U + j]);
+      mx = fmaxf(mx, xg[u * U + j]);
+    }
+  }
+  for (int o = lanes / 2; o > 0; o >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  if (!valid) return;
   const float s = __fmul_rn(__fsub_rn(mx, mn), inv_levels);
   const float safe = s > 0.0f ? s : 1.0f;
-  scale[grp * cols + col] = s;
-  zero[grp * cols + col] = mn;
-
-  uint8_t* pg = packed + grp * (gs / CPB) * cols + col;
-  for (int r = 0; r < gs; r += CPB) {
-    uint32_t byte = 0;
+  uint8_t* pg = packed + g * (gs / CPB);
+  // one unit's codes, U * BITS = 32, 16 or 8 bits, as one store
+  const auto store = [&](int u, const float* v) {
+    uint32_t word = 0;
 #pragma unroll
-    for (int j = 0; j < CPB; ++j)
-      byte |= quant_code(xg[(r + j) * cols], mn, safe, QMAX) << (j * BITS);
-    pg[(r / CPB) * cols] = static_cast<uint8_t>(byte);
+    for (int j = 0; j < U; ++j)
+      word |= quant_code(v[j], mn, safe, QMAX) << (j * BITS);
+    uint8_t* dst = pg + u * (U / CPB);
+    if constexpr (U * BITS == 32) {
+      *reinterpret_cast<uint32_t*>(dst) = word;
+    } else if constexpr (U * BITS == 16) {
+      *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(word);
+    } else {
+      *dst = static_cast<uint8_t>(word);
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const int u = lane + k * lanes;
+    if (u < units) store(u, held[k]);
+  }
+  for (int u = lane + kHeld * lanes; u < units; u += lanes) {
+    float v[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) v[j] = xg[u * U + j];
+    store(u, v);
+  }
+  if (lane == 0) {
+    scale[g] = s;
+    zero[g] = mn;
   }
 }
 
-// V-style: x (rows, cols), groups of gs contiguous columns. packed
-// (rows, cols/cpb), scale/zero (rows, cols/gs).
+constexpr int kStageCols = 128;   // columns a block of quantize_rows
+constexpr int kStageRows = 256;   // rows of a group staged at a time
+
+// Shared memory of quantize_rows: the (rows, kStageCols) stage and the
+// second half's min and max of each column.
+inline int stage_bytes(int rows) {
+  return (rows * kStageCols + 2 * kStageCols) *
+         static_cast<int>(sizeof(float));
+}
+
+// K-style, staged: x (rows, cols), groups of gs rows. Block (group, column
+// tile) stages up to kStageRows of the group's rows of kStageCols columns
+// at a time (thread: a float4 column of every 8th row); thread (column,
+// half) takes min and max over half of each staged piece, then packs bytes
+// cpb rows at a time. packed (rows/cpb, cols), scale/zero (rows/gs, cols).
 template <int BITS>
-__global__ void quantize_cols(const float* __restrict__ x,
-                              uint8_t* __restrict__ packed,
-                              float* __restrict__ scale,
-                              float* __restrict__ zero, int64_t rows,
-                              int64_t cols, int gs, float inv_levels) {
+__global__ void __launch_bounds__(kThreads)
+    quantize_rows(const float* __restrict__ x, uint8_t* __restrict__ packed,
+                  float* __restrict__ scale, float* __restrict__ zero,
+                  int64_t cols, int gs, float inv_levels) {
   constexpr int CPB = 8 / BITS;
   constexpr float QMAX = static_cast<float>((1 << BITS) - 1);
-  const int64_t groups_per_row = cols / gs;
-  const int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                      threadIdx.x;
-  if (idx >= rows * groups_per_row) return;
-  const int64_t row = idx / groups_per_row;
-  const int64_t grp = idx - row * groups_per_row;
-  const float* xg = x + row * cols + grp * gs;
+  extern __shared__ float4 smem4[];
+  float* st = reinterpret_cast<float*>(smem4);
+  const int stage_rows = gs < kStageRows ? gs : kStageRows;
+  float* half_mm = st + stage_rows * kStageCols;
+  const int64_t grp = blockIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kStageCols;
+  const float* xg = x + grp * gs * cols + c0;
+  const int64_t left = cols - c0;   // columns of this tile
+  const int n = left < kStageCols ? static_cast<int>(left) : kStageCols;
+  const int q = 4 * (threadIdx.x % 32);   // the thread's 4 staged columns
+  const int col = threadIdx.x % kStageCols;
+  const int half = threadIdx.x / kStageCols;   // kThreads = 2 kStageCols
 
-  float mn = xg[0];
-  float mx = mn;
-  for (int c = 1; c < gs; ++c) {
-    const float v = xg[c];
-    mn = fminf(mn, v);
-    mx = fmaxf(mx, v);
+  // rows [r0, r0 + pr) of the group into the stage
+  const auto stage = [&](int r0, int pr) {
+#pragma unroll 4
+    for (int r = threadIdx.x / 32; r < pr; r += kThreads / 32) {
+      const float* src = xg + (r0 + r) * cols + q;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (q < n) v.x = src[0];
+      if (q + 1 < n) v.y = src[1];
+      if (q + 2 < n) v.z = src[2];
+      if (q + 3 < n) v.w = src[3];
+      *reinterpret_cast<float4*>(st + r * kStageCols + q) = v;
+    }
+  };
+
+  float mn = INFINITY, mx = -INFINITY;
+  int last = 0;   // first row of the piece left in the stage
+  for (int r0 = 0; r0 < gs; r0 += kStageRows) {
+    const int pr = gs - r0 < kStageRows ? gs - r0 : kStageRows;
+    if (r0 > 0) __syncthreads();   // the last piece is read
+    stage(r0, pr);
+    __syncthreads();
+    for (int r = half ? pr / 2 : 0; r < (half ? pr : pr / 2); ++r) {
+      const float v = st[r * kStageCols + col];
+      mn = fminf(mn, v);
+      mx = fmaxf(mx, v);
+    }
+    last = r0;
   }
+  if (half) {
+    half_mm[col] = mn;
+    half_mm[kStageCols + col] = mx;
+  }
+  __syncthreads();
+  if (!half) {
+    mn = fminf(mn, half_mm[col]);
+    mx = fmaxf(mx, half_mm[kStageCols + col]);
+    half_mm[col] = mn;
+    half_mm[kStageCols + col] = mx;
+    if (col < n) {
+      scale[grp * cols + c0 + col] =
+          __fmul_rn(__fsub_rn(mx, mn), inv_levels);
+      zero[grp * cols + c0 + col] = mn;
+    }
+  }
+  __syncthreads();
+  mn = half_mm[col];
+  mx = half_mm[kStageCols + col];
   const float s = __fmul_rn(__fsub_rn(mx, mn), inv_levels);
   const float safe = s > 0.0f ? s : 1.0f;
-  scale[idx] = s;
-  zero[idx] = mn;
-
-  uint8_t* pg = packed + row * (cols / CPB) + grp * (gs / CPB);
-  for (int c = 0; c < gs; c += CPB) {
-    uint32_t byte = 0;
+  uint8_t* pg = packed + grp * (gs / CPB) * cols + c0 + col;
+  for (int r0 = last; r0 >= 0; r0 -= kStageRows) {
+    const int pr = gs - r0 < kStageRows ? gs - r0 : kStageRows;
+    if (r0 != last) {
+      __syncthreads();   // the stage's piece is packed
+      stage(r0, pr);
+      __syncthreads();
+    }
+    if (col < n) {
+      for (int pb = half; pb < pr / CPB; pb += 2) {
+        uint32_t byte = 0;
 #pragma unroll
-    for (int j = 0; j < CPB; ++j)
-      byte |= quant_code(xg[c + j], mn, safe, QMAX) << (j * BITS);
-    pg[c / CPB] = static_cast<uint8_t>(byte);
+        for (int j = 0; j < CPB; ++j)
+          byte |= quant_code(st[(pb * CPB + j) * kStageCols + col], mn,
+                             safe, QMAX)
+                  << (j * BITS);
+        pg[(r0 / CPB + pb) * cols] = static_cast<uint8_t>(byte);
+      }
+    }
   }
 }
 
@@ -187,20 +319,54 @@ inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
+template <int BITS, int U>
+void launch_cols(const float* x, uint8_t* packed, float* scale, float* zero,
+                 int64_t n_groups, int gs, float inv_levels,
+                 cudaStream_t stream) {
+  // the least power of two of lanes that gives each a unit, up to a warp
+  int shift = 0;
+  while (shift < 5 && (1 << shift) < gs / U) ++shift;
+  quantize_cols<BITS, U><<<blocks_for(n_groups << shift), kThreads, 0,
+                           stream>>>(x, packed, scale, zero, n_groups, gs,
+                                     shift, inv_levels);
+}
+
 template <int BITS>
-void launch_quantize(const float* x, uint8_t* packed, float* scale,
-                     float* zero, int64_t rows, int64_t cols, int gs,
-                     int axis, float inv_levels, cudaStream_t stream) {
+cudaError_t launch_quantize(const float* x, uint8_t* packed, float* scale,
+                            float* zero, int64_t rows, int64_t cols, int gs,
+                            int axis, float inv_levels,
+                            cudaStream_t stream) {
   if (axis == 0) {
-    const int64_t n_groups = rows / gs;
-    quantize_rows<BITS><<<blocks_for(n_groups * cols), kThreads, 0,
-                          stream>>>(x, packed, scale, zero, n_groups, cols,
-                                    gs, inv_levels);
-  } else {
-    quantize_cols<BITS><<<blocks_for(rows * (cols / gs)), kThreads, 0,
-                          stream>>>(x, packed, scale, zero, rows, cols, gs,
+    // the most any group takes, raised once (a function-local static)
+    static const cudaError_t smem_err = cudaFuncSetAttribute(
+        quantize_rows<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stage_bytes(kStageRows));
+    if (smem_err != cudaSuccess) return smem_err;
+    const dim3 grid(static_cast<unsigned>(rows / gs),
+                    static_cast<unsigned>((cols + kStageCols - 1) /
+                                          kStageCols));
+    quantize_rows<BITS><<<grid, kThreads,
+                          stage_bytes(gs < kStageRows ? gs : kStageRows),
+                          stream>>>(x, packed, scale, zero, cols, gs,
                                     inv_levels);
+    return cudaGetLastError();
   }
+  // the unit: 4 values where 4 divides gs, else 2 or 1 (shape_ok makes cpb
+  // divide gs, so cpb divides the unit)
+  const int64_t n_groups = rows * (cols / gs);
+  if (gs % 4 == 0) {
+    launch_cols<BITS, 4>(x, packed, scale, zero, n_groups, gs, inv_levels,
+                         stream);
+  } else if constexpr (BITS != 2) {
+    if (gs % 2 == 0) {
+      launch_cols<BITS, 2>(x, packed, scale, zero, n_groups, gs, inv_levels,
+                           stream);
+    } else if constexpr (BITS == 8) {
+      launch_cols<BITS, 1>(x, packed, scale, zero, n_groups, gs, inv_levels,
+                           stream);
+    }
+  }
+  return cudaGetLastError();
 }
 
 template <int BITS>
@@ -245,15 +411,16 @@ extern "C" int kivi_quantize(const void* x, void* packed, void* scale,
   auto* s = static_cast<float*>(scale);
   auto* z = static_cast<float*>(zero);
   auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (bits) {
-    case 2: launch_quantize<2>(xf, p, s, z, rows, cols, group_size, axis,
-                               inv_levels, st); break;
-    case 4: launch_quantize<4>(xf, p, s, z, rows, cols, group_size, axis,
-                               inv_levels, st); break;
-    default: launch_quantize<8>(xf, p, s, z, rows, cols, group_size, axis,
-                                inv_levels, st); break;
+    case 2: err = launch_quantize<2>(xf, p, s, z, rows, cols, group_size,
+                                     axis, inv_levels, st); break;
+    case 4: err = launch_quantize<4>(xf, p, s, z, rows, cols, group_size,
+                                     axis, inv_levels, st); break;
+    default: err = launch_quantize<8>(xf, p, s, z, rows, cols, group_size,
+                                      axis, inv_levels, st); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // (rows, cols) is the shape of the f32 output.

@@ -8,7 +8,11 @@ Pallas kernel in interpret mode on one case, at rtol 1e-4 / atol 2e-4 (the
 reference's own kernel tolerance). The masking tests mirror the
 reference's (``tests/test_kernels_fused_prefill.py``). The ``cuda``-marked
 test holds the CUDA kernel to the plain version on the card.
+``mma_rounding`` emulates the tensor-core kernel's arithmetic on the CPU,
+to show that its two-part bf16 operands hold the tolerance.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,3 +128,73 @@ def test_ops_refuse_what_they_cannot_take():
         tkernel.chunk_prefill(q, *(packs[n] for n in NAMES), q, q, cur,
                               bits=4, k_group=32, v_group=32)
 
+
+
+def mma_rounding(q, k, v, kc, vc, cur_len: int, parts: int = 2,
+                 tile: int = 64):
+    """The arithmetic of the tensor-core kernel (``fused_mma``) in torch,
+    one plane: the prefix K and V dequantized in f32 (T, hd), then each
+    value, q (scaled to base-2 scores) and P rounded to bf16 as two parts
+    (hi = bf16(x), lo = bf16(x - hi)) or one, each product the sum hi hi +
+    lo hi + hi lo in f32, over 64-token tiles with an online softmax in
+    f32 on base-2 scores, prefix columns at or past ``cur_len`` scoring
+    -1e30; the chunk's own keys in f32, causal, as one more tile. (C, hd)
+    f32 out."""
+    c, hd = q.shape
+
+    def split(x):
+        hi = x.to(torch.bfloat16).float()
+        lo = (x - hi).to(torch.bfloat16).float()
+        return hi, lo if parts == 2 else torch.zeros_like(x)
+
+    def mul(a, b):
+        (ah, al), (bh, bl) = split(a), split(b)
+        return ah @ bh + al @ bh + ah @ bl
+
+    qs = q * (hd ** -0.5 * math.log2(math.e))
+    m = torch.full((c, 1), -1e30)
+    l = torch.zeros((c, 1))
+    acc = torch.zeros((c, hd))
+    rows = torch.arange(c).reshape(c, 1)
+    tiles = [(k[t0:t0 + tile], v[t0:t0 + tile],
+              torch.arange(t0, t0 + tile).reshape(1, -1) < cur_len, True)
+             for t0 in range(0, k.shape[0], tile)]
+    tiles.append((kc, vc, torch.arange(c).reshape(1, -1) <= rows, False))
+    for kt, vt, visible, packed in tiles:
+        sc = mul(qs, kt.T) if packed else qs @ kt.T
+        sc = torch.where(visible, sc, torch.full_like(sc, -1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp2(sc - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + (mul(p, vt) if packed else p @ vt)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_two_part_operands_hold_the_tolerance(bits, q_scale):
+    """The tensor-core kernel's rounding (dequantize, then two bf16 parts
+    of every operand, three products), emulated, against the JAX
+    package's ``chunk_prefill_ref`` on the same dequantized KIVI prefix
+    (the port's codes, which equal the reference's jitted ones): it holds rtol
+    1e-4 / atol 2e-4, q scaled by 8 (a peaked softmax) included. With one
+    bf16 part it does not, which is why the kernel pays for the other
+    two products."""
+    rng = np.random.RandomState(40 + bits)
+    p, t, c, hd, g = 2, 512, 32, 128, 64
+    q, kc, vc = chunk(rng, p, c, hd)
+    q = q * q_scale
+    for i, n in enumerate((t, 300)):
+        k, v = (rng.randn(t, hd).astype(np.float32) for _ in range(2))
+        kd, vd = (tkivi.dequantize_ref(tkivi.quantize_ref(
+            torch.from_numpy(a), bits, g, axis)) for a, axis in ((k, 0),
+                                                                  (v, 1)))
+        want = np.asarray(jref.chunk_prefill_ref(
+            q[i], kd.numpy(), vd.numpy(), kc[i], vc[i], n))
+        args = [torch.from_numpy(a[i]) for a in (q, kc, vc)]
+        got = mma_rounding(args[0], kd, vd, *args[1:], n)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        one = mma_rounding(args[0], kd, vd, *args[1:], n, parts=1)
+        assert not np.allclose(one.numpy(), want, **TOL)

@@ -1,5 +1,5 @@
-"""The port's attention and selective-scan kernels against their plain
-versions on the card.
+"""The port's KIVI quantize, attention and selective-scan kernels against
+their plain versions on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA card.
 This file imports no JAX, so on a machine with a card and without JAX it
@@ -13,13 +13,16 @@ share. The attention tolerance, rtol 1e-4 / atol 2e-4, is the reference's
 own kernel tolerance (``tests/test_kernels_fused_prefill.py``), and so is
 the scan's, rtol = atol = 1e-4 (``tests/test_kernels_mamba_scan.py``): the
 kernels sum in another order than the plain versions, in f32 throughout.
+KIVI quantize is held bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.decode_attn import ops as decode_ops
+from repro_torch.kernels.fused_prefill import kernel as fused_kernel
 from repro_torch.kernels.fused_prefill import ops as fused_ops
+from repro_torch.kernels.kivi import kernel as kivi_kernel
 from repro_torch.kernels.kivi import ref as tkivi
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.prefill_attn import kernel as prefill_kernel
@@ -74,6 +77,65 @@ def scan_inputs(seed, b, s, d, n, h0_scale=0.1):
             rng.randn(b, d, n).astype(np.float32) * h0_scale)
 
 
+def kivi_matrix(rng, rows, cols, bits, group):
+    """K/V-like values with the cases that test rounding: a spread of
+    column scales, a constant block (groups of scale 0 along either axis)
+    and a block of exact half-steps of the top code."""
+    x = rng.randn(rows, cols).astype(np.float32)
+    x *= rng.rand(1, cols).astype(np.float32) * 8 + 0.05
+    r, c = min(group, rows), min(group, cols)
+    x[:r, :c] = 1.25
+    h = max(0, min(group, rows - group))
+    steps = 2 * (2 ** bits - 1) + 1
+    i = np.arange(group)
+    x[group:group + h, :c] = ((i[:h, None] + i[None, :c]) % steps) * 0.5
+    return x
+
+
+# (bits, axis, group, rows, cols, offset in f32 of x from a 16-byte
+# boundary)
+KIVI_CASES = [
+    case for bits in (8, 4, 2) for case in (
+        [(bits, 0, g, 384, 200, 0) for g in (32, 64, 128)]
+        + [(bits, 1, g, 77, 384, 0) for g in (32, 64, 128)]
+        + [(bits, 0, 64, 192, 203, 0),    # K: a ragged column tile
+           (bits, 0, 320, 640, 72, 0),    # K: a group past 256 rows
+           (bits, 0, 600, 1200, 40, 0),   # K: staged in three pieces
+           (bits, 1, 24, 50, 96, 0),      # V: 6 units on 8 lanes
+           (bits, 1, 3 * (8 // bits), 40, 96, 0),  # V: units of 1 or 2
+           (bits, 1, 256, 9, 512, 0),     # V: two units a lane
+           (bits, 1, 1024, 5, 2048, 0),   # V: units read again
+           (bits, 1, 16, 130, 16, 0),     # V: a state row (d_state 16)
+           (bits, 0, 64, 128, 256, 1),    # x not 16-byte aligned
+           (bits, 1, 64, 33, 128, 1)])]
+
+
+@pytest.mark.cuda
+def test_kivi_quantize_bit_equal():
+    """On the card: KIVI quantize equals the plain version bit for bit
+    (packed codes, scales and zeros) at 8, 4 and 2 bits, both groupings,
+    groups of 32, 64 and 128, ragged row and column counts, a matrix that
+    is not 16-byte aligned, and the layouts that take the kernels' other
+    branches: K groups staged in pieces, V groups in units of fewer than 4
+    values, over fewer lanes than a power of two fills, or of more units
+    than a lane holds in registers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(40)
+    for bits, axis, g, rows, cols, offset in KIVI_CASES:
+        x = kivi_matrix(rng, rows, cols, bits, g)
+        want = tkivi.quantize_ref(torch.from_numpy(x), bits, g, axis)
+        buf = torch.zeros(rows * cols + offset, device="cuda")
+        buf[offset:] = torch.from_numpy(x).reshape(-1).cuda()
+        got = kivi_kernel.quantize(buf[offset:].view(rows, cols), bits, g,
+                                   axis)
+        for name, a, b in zip(("packed", "scale", "zero"), got,
+                              (want.packed, want.scale, want.zero)):
+            assert torch.equal(a.cpu(), b), (
+                f"{name} differs: bits {bits} axis {axis} group {g} "
+                f"({rows}, {cols}) offset {offset}")
+
+
 @pytest.mark.cuda
 def test_decode_attn_matches_plain():
     """On the card: the CUDA kernel against the plain version, over bits,
@@ -98,27 +160,54 @@ def test_decode_attn_matches_plain():
                 torch.testing.assert_close(got.cpu(), want, **TOL)
 
 
+# (bits, K group, V group, C, T, hd, q scale): the first nine at the
+# shapes of the first kernel; then chunk sizes 1 to 64 (a warp takes 16
+# rows, a block 32), T of one and three 64-token tiles, every head dim the
+# tensor-core kernel takes, K groups that are not a tile's divisor (24) or
+# span two tiles (128), groups of 8, q scaled by 8 (the least margin in
+# the emulation), and hd 8, which stays on the CUDA-core kernel
+FUSED_CASES = (
+    [(bits, g, g, c, 320, 128, 1.0) for bits in (8, 4, 2)
+     for g, c in ((32, 16), (64, 32), (64, 45))]
+    + [(4, 64, 64, c, 192, 128, 1.0) for c in (1, 17, 33, 64)]
+    + [(4, 64, 64, 32, 64, 128, 1.0), (8, 64, 64, 16, 192, 128, 1.0)]
+    + [(8, 32, 16, 16, 192, hd, 1.0) for hd in (16, 32, 64)]
+    + [(2, 24, 16, 17, 192, 32, 1.0), (8, 128, 64, 16, 256, 128, 1.0),
+       (4, 8, 8, 33, 192, 64, 1.0)]
+    + [(bits, 64, 64, 32, 320, 128, 8.0) for bits in (8, 4, 2)]
+    + [(4, 32, 8, 16, 128, 8, 1.0)])
+
+
 @pytest.mark.cuda
 def test_fused_prefill_matches_plain():
-    """On the card: the CUDA kernel against the plain version over bits,
-    groups, chunk sizes (ragged tiles included) and valid lengths."""
+    """On the card: the CUDA kernels against the plain version over
+    ``FUSED_CASES`` and valid lengths T, partial and 0. Head dims 16-128
+    with groups that are multiples of 8 must take the tensor-core kernel
+    (``fused_mma``), hd 8 the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.RandomState(15)
-    for bits in (8, 4, 2):
-        for g, c in ((32, 16), (64, 32), (64, 45)):
-            p, t, hd = 3, 320, 128
-            q, kc, vc = (torch.from_numpy(a) for a in chunk(rng, p, c, hd))
-            packs = packed_planes(rng, p, t, hd, bits, g, g)
-            for kind in ("full", "partial", "zero"):
-                cur = torch.from_numpy(lengths(kind, p, t))
-                want = fused_ops.chunk_prefill_planes(
-                    q, *(packs[n] for n in NAMES), kc, vc, cur, bits=bits,
-                    k_group=g, v_group=g)
-                got = fused_ops.chunk_prefill_planes(
-                    q.cuda(), *(packs[n].cuda() for n in NAMES), kc.cuda(),
-                    vc.cuda(), cur.cuda(), bits=bits, k_group=g, v_group=g)
-                torch.testing.assert_close(got.cpu(), want, **TOL)
+    for bits, kg, vg, c, t, hd, q_scale in FUSED_CASES:
+        p = 3
+        q, kc, vc = (torch.from_numpy(a) for a in chunk(rng, p, c, hd))
+        q = q * q_scale
+        packs = packed_planes(rng, p, t, hd, bits, kg, vg)
+        mma = hd % 16 == 0 and kg % 8 == 0 and vg % 8 == 0
+        for kind in ("full", "partial", "zero"):
+            cur = torch.from_numpy(lengths(kind, p, t))
+            want = fused_ops.chunk_prefill_planes(
+                q, *(packs[n] for n in NAMES), kc, vc, cur, bits=bits,
+                k_group=kg, v_group=vg)
+            before = fused_kernel.LAUNCHES["fused_prefill_mma"]
+            got = fused_ops.chunk_prefill_planes(
+                q.cuda(), *(packs[n].cuda() for n in NAMES), kc.cuda(),
+                vc.cuda(), cur.cuda(), bits=bits, k_group=kg, v_group=vg)
+            what = f"bits {bits} groups {kg}/{vg} C {c} T {t} hd {hd} " \
+                   f"q x {q_scale} cur_len {kind}"
+            torch.testing.assert_close(got.cpu(), want, **TOL,
+                                       msg=lambda m: f"{what}: {m}")
+            assert (fused_kernel.LAUNCHES["fused_prefill_mma"]
+                    - before) == int(mma), what
 
 
 @pytest.mark.cuda
