@@ -18,16 +18,21 @@ stops the run with a non-zero exit when it fails:
              KIVI quantize/dequantize bit-equal on a (32*512, 1024) f32
              matrix for 8/4/2 bits and both groupings, timed as device time
              (CUDA-graph replays) beside the time of one call (events, the
-             host's wrapper included), and quantize bit-equal at layouts
-             outside the model's (K groups staged in pieces, V groups of
-             24, of 3 bytes' codes and of 1024); decode_attn (8 planes,
-             4 query rows, 4096 tokens, hd 128) and fused_prefill (32 planes,
-             a 32-token chunk over 4096 packed tokens; at hd 128 its
-             tensor-core kernel ``fused_mma``) for 8/4/2 bits and
-             valid lengths T, partial and 0, within rtol 1e-4 / atol 2e-4,
-             with bytes past the valid length set to 255 changing nothing,
-             and the same checks of its CUDA-core kernel ``fused_split``
-             at hd 8 and at a K group of 12;
+             host's wrapper included), and quantize and dequantize
+             bit-equal at layouts outside the model's (K groups staged in
+             pieces, a ragged K column count, V groups of 24, of 3 bytes'
+             codes and of 1024); decode_attn (8 planes, 4 query rows, 4096
+             tokens, hd 128: its one-launch kernel ``decode_ring``) and
+             fused_prefill (32 planes, a 32-token chunk over 4096 packed
+             tokens; at hd 128 its tensor-core kernel ``fused_mma``) for
+             8/4/2 bits and valid lengths T, partial and 0, within rtol
+             1e-4 / atol 2e-4, with bytes past the valid length set to 255
+             changing nothing, and the same checks of ``decode_ring`` at
+             its other paths (T not a multiple of 16: a K group of 12 over
+             4092 tokens; codes 1 byte past an aligned address; 1 and 32
+             query rows; groups of 2 and of 1, rings of 2 and 1 stages),
+             one launch a call, and of fused_prefill's CUDA-core kernel
+             ``fused_split`` at hd 8 and at a K group of 12;
              flash_attention (S 4096, 32 heads over 8 KV heads) for f32
              inputs (the CUDA-core kernel) and bf16 inputs (the tensor-core
              kernel, ``flash_fwd_mma``) within the same tolerance. Each is
@@ -41,8 +46,9 @@ stops the run with a non-zero exit when it fails:
              floor of the kernel's two-part P (1.5 times the products)
              beside it; so is fused_prefill's, with the floor of its three
              products of two-part operands (3 times the products). At 4
-             bits, decode_attn's and fused_prefill's time is divided
-             between their split pass and merge by ``torch.profiler``.
+             bits, ``torch.profiler`` divides each call's time between the
+             kernels it launches: decode_attn's one, fused_prefill's split
+             pass and merge.
              The selective scan at full-width falcon-mamba-7b shapes
              (D 8192, N 16): (B 1, S 640), (B 1, S 4096) and (B 2,
              S 577, h0 != 0), y and hT within rtol 1e-4 / atol 1e-4, timed
@@ -67,8 +73,9 @@ stops the run with a non-zero exit when it fails:
              of decode_attn, fused_prefill and flash_attention, and the
              counts of flash_attention's and fused_prefill's tensor-core
              launches, are zeroed just before and must each be above 0 just
-             after; every fused_prefill call, all at hd 128, must have
-             taken the tensor-core kernel); phase 3's
+             after; every decode_attn call must have been one launch, and
+             every fused_prefill call, all at hd 128, must have taken the
+             tensor-core kernel); phase 3's
              workload is served again on the same runner with
              ``fused_compute=True`` and the measured residual fraction. The
              summary must be complete and finite, the residual in [0, 1],
@@ -220,7 +227,9 @@ def device_ms(fn, calls: int) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up's stream: decode_attn's arrival counters are
+    # made by the first call on a stream, which cannot be captured
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -242,7 +251,8 @@ def device_ms(fn, calls: int) -> float:
 def kernel_us(fn, calls: int = 20) -> dict:
     """Device time of each kernel that ``calls`` calls of ``fn`` launch, in
     microseconds a call, by ``torch.profiler`` (CUDA activity): how a
-    call's time divides between its kernels (a split pass and its merge)."""
+    call's time divides between its kernels (fused_prefill's split pass
+    and its merge)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -382,15 +392,30 @@ def phase_packed_attention(name: str, dims: dict, kernel_fn, plain_fn,
     return rows, worst
 
 
+def decode_call(ops, kernel, launches: int, what: str):
+    """``ops.decode_attention_planes`` that fails unless the call launched
+    ``launches`` kernels (decode_ring: 1)."""
+    def call(*args, **kw):
+        before = kernel.LAUNCHES["decode_attn"]
+        out = ops.decode_attention_planes(*args, **kw)
+        if kernel.LAUNCHES["decode_attn"] - before != launches:
+            fail(f"decode_attn {what}: "
+                 f"{kernel.LAUNCHES['decode_attn'] - before} launches a "
+                 f"call, expected {launches}")
+        return out
+    return call
+
+
 def phase_decode_attn(ops, ref):
+    from repro_torch.kernels.decode_attn import kernel
     d = DECODE
     p, gq, t, hd = d["p"], d["gq"], d["t"], d["hd"]
     gen = torch.Generator(device="cuda").manual_seed(7)
     q = torch.randn((p, gq, hd), generator=gen, device="cuda")
+    call = decode_call(ops, kernel, 1, f"at {d}")
     return phase_packed_attention(
         "decode_attn", d,
-        lambda packs, cur, **kw: ops.decode_attention_planes(
-            q, *packs, cur, **kw),
+        lambda packs, cur, **kw: call(q, *packs, cur, **kw),
         lambda packs, cur, **kw: ref.decode_attention_planes_ref(
             q, *packs, cur, **kw),
         io_floats=2 * p * gq * hd, flops=4 * p * gq * t * hd, seed=0)
@@ -452,6 +477,60 @@ def phase_fused_split(ops, ref, kernel):
               f"{kg}/{vg}: within tolerance for 8/4/2 bits and cur_len T / "
               f"partial / 0, tail bytes ignored, none on fused_mma")
     print(f"  fused_split max abs err {worst:.3g}")
+    return worst
+
+
+def phase_decode_layouts(ops, ref, kernel):
+    """decode_ring's other paths at P 8, hd 128, each one launch a call: T
+    not a multiple of 16 (a K group of 12 over 4092 tokens: parts of a
+    stage copied 4 bytes at a time), packed planes 1 byte past an aligned
+    address (the codes copied a byte at a time), 1 query row and 32 (four
+    row blocks of 8), and groups of 2 (a ring of 2 stages) and of 1 at 8
+    bits (1 stage). Within tolerance against the plain version for the
+    case's bit widths and valid lengths T, partial and 0, tail bytes
+    ignored. Returns the largest error."""
+    p, hd = DECODE["p"], DECODE["hd"]
+    worst = 0.0
+    for gq, t, kg, vg, offset, widths in (
+            (4, 4092, 12, 64, 0, (8, 4, 2)), (4, 4096, 64, 64, 1, (8, 4, 2)),
+            (1, 4096, 64, 64, 0, (8, 4, 2)), (32, 4096, 64, 64, 0, (8, 4, 2)),
+            (4, 4096, 2, 2, 0, (4,)), (8, 4096, 1, 1, 0, (8,))):
+        gen = torch.Generator(device="cuda").manual_seed(40 + gq)
+        q = torch.randn((p, gq, hd), generator=gen, device="cuda")
+        lens = valid_lengths(p, t)
+        what = (f"decode_ring (P, Gq, T, hd)=({p}, {gq}, {t}, {hd}), groups "
+                f"{kg}/{vg}, codes {offset} byte(s) past an aligned address")
+        call = decode_call(ops, kernel, 1, what)
+
+        def shift(planes):
+            """The packed codes ``offset`` bytes past an aligned address."""
+            if not offset:
+                return planes
+            out = list(planes)
+            for i in (0, 3):
+                buf = torch.empty(planes[i].numel() + offset,
+                                  dtype=torch.uint8, device="cuda")
+                out[i] = buf[offset:].view(planes[i].shape)
+                out[i].copy_(planes[i])
+            return out
+
+        for bits in widths:
+            packs = shift(packed_planes(30 + bits, p, t, hd, bits, kg, vg))
+            kw = dict(bits=bits, k_group=kg, v_group=vg)
+            outs = {}
+            for case, cur in lens.items():
+                outs[case] = call(q, *packs, cur, **kw)
+                worst = max(worst, close_err(
+                    f"{what} bits={bits} cur_len={case}", outs[case],
+                    ref.decode_attention_planes_ref(q, *packs, cur, **kw)))
+            spoiled = shift(spoil_tail(packs, lens["partial"], bits))
+            if not torch.equal(call(q, *spoiled, lens["partial"], **kw),
+                               outs["partial"]):
+                fail(f"{what} bits={bits}: bytes past cur_len changed the "
+                     "output")
+        print(f"  {what}: within tolerance for {widths} bits and cur_len T /"
+              f" partial / 0, tail bytes ignored, one launch a call")
+    print(f"  decode_attn's other layouts: max abs err {worst:.3g}")
     return worst
 
 
@@ -665,17 +744,19 @@ def phase_kernels(kernel, ref, Quantized):
 
 
 def phase_kivi_layouts(kernel, ref):
-    """KIVI quantize bit-equal to the plain version at layouts outside the
-    model's, which take the kernels' other branches: K groups of 320 and
-    640 rows (staged in two and three pieces), V groups of 24 (six units
-    of 4 values on 8 lanes), of 3 bytes' codes (units of 1, 2 or 4 values
-    at 8, 4 or 2 bits) and of 1024 (a lane's units past its first two are
-    read again), for 8/4/2 bits."""
+    """KIVI quantize and dequantize bit-equal to the plain version at
+    layouts outside the model's, which take the kernels' other branches:
+    K groups of 320 and 640 rows (staged in two and three pieces), 203
+    columns (dequantize a column at a time), V groups of 24 (six units of
+    4 values on 8 lanes), of 3 bytes' codes (units of 1, 2 or 4 values at
+    8, 4 or 2 bits; dequantize's units of 4 values span two groups at 8
+    and 4 bits) and of 1024 (a lane's units past its first two are read
+    again), for 8/4/2 bits."""
     for bits in (8, 4, 2):
         cpb = 8 // bits
         layouts = ((0, 320, 640, 1024), (0, 640, 1280, 1024),
-                   (1, 24, 4096, 960), (1, 3 * cpb, 4096, 960),
-                   (1, 1024, 512, 4096))
+                   (0, 64, 4096, 203), (1, 24, 4096, 960),
+                   (1, 3 * cpb, 4096, 960), (1, 1024, 512, 4096))
         for i, (axis, gs, rows, cols) in enumerate(layouts):
             x = kv_matrix(rows, cols, bits, seed=100 + 10 * bits + i)
             got = kernel.quantize(x, bits, gs, axis)
@@ -687,8 +768,13 @@ def phase_kivi_layouts(kernel, ref):
                     fail(f"quantize bits={bits} axis={axis} group={gs} "
                          f"({rows}, {cols}): {name} differs from the plain "
                          "version")
-        print(f"  quantize bits={bits}: bit-equal at (axis, group, rows, "
-              f"cols) {', '.join(str(lay) for lay in layouts)}")
+            back = kernel.dequantize(*got, bits, gs, axis, x.shape[axis])
+            torch.cuda.synchronize()
+            if not torch.equal(back, ref.dequantize_ref(want)):
+                fail(f"dequantize bits={bits} axis={axis} group={gs} "
+                     f"({rows}, {cols}): differs from the plain version")
+        print(f"  quantize and dequantize bits={bits}: bit-equal at (axis, "
+              f"group, rows, cols) {', '.join(str(lay) for lay in layouts)}")
 
 
 def summarize_profile(events, device_type) -> dict:
@@ -882,18 +968,31 @@ def phase_fused(attn_kernels, summary3, serving):
     from repro_torch.core.estimator import load_fused_calibration
     from repro_torch.launch import kernel_bench
 
+    # kernel_bench's decode calls, counted where it makes them
+    decode_ops = kernel_bench.decode_ops
+    decode_planes = decode_ops.decode_attention_planes
+    decode_calls = [0]
+
+    def counted_decode(*args, **kw):
+        decode_calls[0] += 1
+        return decode_planes(*args, **kw)
+
     for mod in attn_kernels.values():
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cal_") as tmp, \
-            contextlib.redirect_stdout(buf):
-        cal_path = Path(tmp) / "fused_calibration.json"
-        kernel_bench.main(["--out", str(cal_path)])
-        torch.cuda.synchronize()
-        cal = load_fused_calibration(str(cal_path))
-        raw = json.loads(cal_path.read_text())
+    decode_ops.decode_attention_planes = counted_decode
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cal_") as tmp, \
+                contextlib.redirect_stdout(buf):
+            cal_path = Path(tmp) / "fused_calibration.json"
+            kernel_bench.main(["--out", str(cal_path)])
+            torch.cuda.synchronize()
+            cal = load_fused_calibration(str(cal_path))
+            raw = json.loads(cal_path.read_text())
+    finally:
+        decode_ops.decode_attention_planes = decode_planes
     bench_s = time.perf_counter() - t0
     launches = {name: n for mod in attn_kernels.values()
                 for name, n in mod.LAUNCHES.items()}
@@ -905,6 +1004,10 @@ def phase_fused(attn_kernels, summary3, serving):
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         fail(f"the fused-compute path never launched {missing}")
+    if launches["decode_attn"] != decode_calls[0]:
+        fail(f"{launches['decode_attn']} decode_attn launches for "
+             f"{decode_calls[0]} calls: one a call expected")
+    print(f"  decode_attn: {decode_calls[0]} calls, one launch each")
     # two launches a call; every call is at hd 128, the tensor cores' case
     if 2 * launches["fused_prefill_mma"] != launches["fused_prefill"]:
         fail(f"{launches['fused_prefill_mma']} of "
@@ -1131,6 +1234,8 @@ def main() -> int:
         "selective_scan": phase_selective_scan(scan_ops, scan_ref),
     }
     fused_split_err = phase_fused_split(fused_ops, fused_ref, fused_kernel)
+    decode_layouts_err = phase_decode_layouts(decode_ops, decode_ref,
+                                              decode_kernel)
 
     print("[3/5] serving full-width adaptcache-8b through build_engine")
     summary, launches, wall_s, serving, profile3 = phase_serving()
@@ -1199,6 +1304,7 @@ def main() -> int:
         "build_s": build_s, "kernel_rows": kernel_rows,
         "timed_rows": {k: v[0] for k, v in timed_rows.items()},
         "fused_split_max_abs_err": fused_split_err,
+        "decode_layouts_max_abs_err": decode_layouts_err,
         "kernels": entries, "summary": summary, "launches": launches,
         "engine_wall_s": wall_s, "profile_phase3": profile3,
         "fused": fused, "mamba": mamba},

@@ -1,9 +1,11 @@
-// The tensor-core helpers that the port's bf16 mma.sync kernels share
-// (prefill_attn's flash_fwd_mma, fused_prefill's fused_mma). Header only;
-// each kernel's .cu includes it.
+// The Hopper helpers that the port's kernels share: the bf16 mma.sync
+// kernels (prefill_attn's flash_fwd_mma, fused_prefill's fused_mma) and
+// the cp.async rings (those two and decode_attn's decode_ring). Header
+// only; each kernel's .cu includes it.
 //
 //  - cp.async: 16-byte copies from global to shared memory that bypass L1,
-//    zero-filled where the source is not valid, grouped and waited on;
+//    zero-filled where the source is not valid, grouped and waited on, and
+//    a block's copy of a flat run of bytes made of them;
 //  - ldmatrix: four 8 x 8 bf16 matrices from shared memory into the
 //    fragments of mma.sync, as they lie (B of a row-major K tile) or
 //    transposed (B of a row-major V tile);
@@ -36,6 +38,19 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A block of NT threads copies the first n_valid of n_cap bytes (both
+// multiples of 16) at src to the shared byte address dst, 16 bytes a
+// thread a step; zeros past n_valid. Not waited on: the caller commits.
+template <int NT>
+__device__ __forceinline__ void copy_flat(uint32_t dst, const void* src,
+                                          int n_valid, int n_cap) {
+  const char* s = static_cast<const char*>(src);
+  for (int i = threadIdx.x * 16; i < n_cap; i += NT * 16) {
+    const bool valid = i < n_valid;
+    cp_async16(dst + i, valid ? s + i : s, valid);
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {

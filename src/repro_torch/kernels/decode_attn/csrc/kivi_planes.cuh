@@ -45,6 +45,14 @@ __device__ __forceinline__ Plane plane_at(const uint8_t* kp, const float* ks,
                vs + pp * T * (hd / vg),  vz + pp * T * (hd / vg)};
 }
 
+// The code at bit offset pos of a packed word, as f32: OR-ed into the
+// mantissa of 2^23 and 2^23 taken away again, exactly.
+template <int BITS>
+__device__ __forceinline__ float code_at(uint32_t x, int pos) {
+  constexpr uint32_t MASK = (1u << BITS) - 1u;
+  return __uint_as_float(0x4b000000u | ((x >> pos) & MASK)) - 8388608.0f;
+}
+
 // The packed bytes, scale and zero of one token of the thread's channel,
 // for K and for V, as read from device memory.
 struct Raw {

@@ -162,6 +162,7 @@ cudaError_t launch(const float* q, const uint8_t* kp, const float* ks,
 namespace fmma {
 
 using namespace ::sm90;   // the shared helpers of mma_sm90.cuh
+using kivi_planes::code_at;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreadsF = 128;   // 4 warps: 2 of rows x 2 of tokens
@@ -201,17 +202,6 @@ struct Layout {
   }
 };
 
-// Copy the first n_valid of n_cap bytes (multiples of 16) at src to the
-// shared byte address dst, 16 bytes a thread a step; zeros past n_valid.
-__device__ __forceinline__ void copy_flat(uint32_t dst, const void* src,
-                                          int n_valid, int n_cap) {
-  const char* s = static_cast<const char*>(src);
-  for (int i = threadIdx.x * 16; i < n_cap; i += kThreadsF * 16) {
-    const bool valid = i < n_valid;
-    cp_async16(dst + i, valid ? s + i : s, valid);
-  }
-}
-
 // Start the copies of tokens [t0, t0 + n) of a plane into the stage at
 // shared byte address st. Each part of a tile is contiguous in device
 // memory: K's rows of cpb tokens, V's token rows, the K groups the tile
@@ -223,26 +213,20 @@ __device__ __forceinline__ void load_stage(const kivi_planes::Plane& pl,
   constexpr int CPB = 8 / BITS;
   const int vcols = HD / vg, g0 = t0 / kg;
   const int ng = (t0 + n - 1) / kg - g0 + 1;
-  copy_flat(st + L.kraw, pl.kp + static_cast<int64_t>(t0 / CPB) * HD,
-            n / CPB * HD, kTok / CPB * HD);
-  copy_flat(st + L.vraw, pl.vp + static_cast<int64_t>(t0) * (HD / CPB),
-            n * (HD / CPB), kTok * (HD / CPB));
-  copy_flat(st + L.ks, pl.ks + static_cast<int64_t>(g0) * HD, ng * HD * 4,
-            L.gr * HD * 4);
-  copy_flat(st + L.kz, pl.kz + static_cast<int64_t>(g0) * HD, ng * HD * 4,
-            L.gr * HD * 4);
-  copy_flat(st + L.vs, pl.vs + static_cast<int64_t>(t0) * vcols,
-            n * vcols * 4, kTok * vcols * 4);
-  copy_flat(st + L.vz, pl.vz + static_cast<int64_t>(t0) * vcols,
-            n * vcols * 4, kTok * vcols * 4);
-}
-
-// The code at bit offset pos of a packed word, as f32: OR-ed into the
-// mantissa of 2^23 and 2^23 taken away again, exactly.
-template <int BITS>
-__device__ __forceinline__ float code_at(uint32_t x, int pos) {
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  return __uint_as_float(0x4b000000u | ((x >> pos) & MASK)) - 8388608.0f;
+  copy_flat<kThreadsF>(st + L.kraw,
+                       pl.kp + static_cast<int64_t>(t0 / CPB) * HD,
+                       n / CPB * HD, kTok / CPB * HD);
+  copy_flat<kThreadsF>(st + L.vraw,
+                       pl.vp + static_cast<int64_t>(t0) * (HD / CPB),
+                       n * (HD / CPB), kTok * (HD / CPB));
+  copy_flat<kThreadsF>(st + L.ks, pl.ks + static_cast<int64_t>(g0) * HD,
+                       ng * HD * 4, L.gr * HD * 4);
+  copy_flat<kThreadsF>(st + L.kz, pl.kz + static_cast<int64_t>(g0) * HD,
+                       ng * HD * 4, L.gr * HD * 4);
+  copy_flat<kThreadsF>(st + L.vs, pl.vs + static_cast<int64_t>(t0) * vcols,
+                       n * vcols * 4, kTok * vcols * 4);
+  copy_flat<kThreadsF>(st + L.vz, pl.vz + static_cast<int64_t>(t0) * vcols,
+                       n * vcols * 4, kTok * vcols * 4);
 }
 
 // Dequantize a stage into the K and V tiles, each value fma(code, scale,

@@ -32,10 +32,15 @@ import torch
 
 from repro_torch.kernels._build import (CudaLibrary, check_rc, check_tensor,
                                         stream_of)
-from repro_torch.kernels.decode_attn.kernel import packed_shapes, split_len
+from repro_torch.kernels.decode_attn.kernel import packed_shapes
 
 LAUNCHES: Dict[str, int] = {"fused_prefill": 0, "fused_prefill_mma": 0}
 ROWS_PER_BLOCK = 32
+TILE = 32                     # tokens a tile of fused_split (flash_tile.cuh)
+# eight blocks for each of the H100's 132 SMs: a fused_split block walks
+# its tiles one after another and waits on each tile's loads, so more,
+# shorter splits overlap that wait across blocks
+TARGET_BLOCKS = 1056
 MMA_TILE = 64                 # tokens a tile of the tensor-core kernel
 # two blocks for each of the H100's 132 SMs: each block of the tensor-core
 # kernel walks its tiles through a cp.async ring, so a few long splits
@@ -59,6 +64,16 @@ def tensor_cores(hd: int, k_group: int, v_group: int, *tensors) -> bool:
     return (hd in (16, 32, 64, 128) and k_group % 8 == 0
             and v_group % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def split_len(t: int, blocks_per_split: int) -> int:
+    """Tokens per split for the CUDA-core kernel: whole 32-token tiles,
+    enough splits that the grid holds about TARGET_BLOCKS blocks (at most
+    one split per tile)."""
+    n_tiles = math.ceil(t / TILE)
+    n_splits = max(1, min(n_tiles, math.ceil(TARGET_BLOCKS
+                                             / max(1, blocks_per_split))))
+    return math.ceil(n_tiles / n_splits) * TILE
 
 
 def mma_split_len(t: int, blocks_per_split: int) -> int:

@@ -55,7 +55,22 @@
 //   * Min and max are exact in any order, and every element takes the
 //     same intrinsics in the same order, so the codes, scales and zeros
 //     are bit-equal to the plain version at every layout.
-//   * Dequantize: one thread per packed byte, writing its cpb values.
+//   * Dequantize writes 8 times what it reads at 4 bits, so its stores are
+//     what must be wide: every warp store is 512 contiguous bytes, and no
+//     element does a 64-bit division (each group is found once a unit, by
+//     the grid for K and by a shift or a 32-bit division for V).
+//     dequantize_cols (V-style) reads the output as a flat run: a thread
+//     takes units of 4 values (4/cpb packed bytes in, one float4 out);
+//     dequantize_rows (K-style) gives a thread 4 columns of a group, its
+//     scales and zeros held as float4, and walks the group's packed rows,
+//     one 4-byte load and cpb float4 stores a row. The stores stream
+//     (__stcs, evict-first): the output is read by the next kernel at the
+//     earliest, and on an H100 plain stores took 1.07-2.1 times as long at
+//     (16384, 1024) (PERF.md). Layouts off those
+//     paths (a V group not a multiple of 4, a K column count not a
+//     multiple of 4, unaligned pointers) go a value at a time in the same
+//     kernels. Every value is __fmaf_rn(code, scale, zero), bit-equal to
+//     the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -263,55 +278,145 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K-style inverse: one thread per packed byte (p, col) of (rows/cpb, cols).
+// The code at bit offset pos of a packed word, as f32: OR-ed into the
+// mantissa of 2^23 and 2^23 taken away again, exactly.
 template <int BITS>
-__global__ void dequantize_rows(const uint8_t* __restrict__ packed,
-                                const float* __restrict__ scale,
-                                const float* __restrict__ zero,
-                                float* __restrict__ out, int64_t rows,
-                                int64_t cols, int gs) {
-  constexpr int CPB = 8 / BITS;
+__device__ __forceinline__ float code_at(uint32_t x, int pos) {
   constexpr uint32_t MASK = (1u << BITS) - 1u;
-  const int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                      threadIdx.x;
-  if (idx >= (rows / CPB) * cols) return;
-  const int64_t p = idx / cols;
-  const int64_t col = idx - p * cols;
-  const int64_t grp = (p * CPB) / gs;
-  const float s = scale[grp * cols + col];
-  const float z = zero[grp * cols + col];
-  const uint32_t byte = packed[idx];
+  return __uint_as_float(0x4b000000u | ((x >> pos) & MASK)) - 8388608.0f;
+}
+
+constexpr int kDqCols = 128;     // columns a block of dequantize_rows
+constexpr int kDqSlices = kThreads / (kDqCols / 4);   // 8 packed-row slices
+
+// K-style inverse: packed (rows/cpb, cols), scale/zero (rows/gs, cols) ->
+// out (rows, cols). Block (group, column tiles of kDqCols: blockIdx.y and
+// every gridDim.y-th after it); thread (lane, slice) takes columns
+// 4 lane .. 4 lane + 3 of a tile and the group's packed rows slice,
+// slice + kDqSlices, ... With cols a multiple of 4 (wide) it holds the
+// group's scales and zeros of its columns as float4, reads a packed row's
+// 4 bytes as one word and stores each of its cpb rows of 4 values as one
+// float4, so a warp reads 128 and stores 512 contiguous bytes; other
+// column counts go a column at a time.
+template <int BITS>
+__device__ __forceinline__ void dequantize_rows_tile(
+    const uint8_t* __restrict__ packed, const float* __restrict__ scale,
+    const float* __restrict__ zero, float* __restrict__ out, int64_t cols,
+    int gs, bool wide, int64_t grp, int64_t c, int slice) {
+  constexpr int CPB = 8 / BITS;
+  const int prows = gs / CPB;   // packed rows of the group
+  const uint8_t* pg = packed + grp * prows * cols + c;
+  float* og = out + grp * gs * cols + c;
+  if (wide) {
+    const float4 s = *reinterpret_cast<const float4*>(scale + grp * cols + c);
+    const float4 z = *reinterpret_cast<const float4*>(zero + grp * cols + c);
+#pragma unroll 4
+    for (int pr = slice; pr < prows; pr += kDqSlices) {
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(pg + pr * cols);
 #pragma unroll
-  for (int j = 0; j < CPB; ++j) {
-    const float q = static_cast<float>((byte >> (j * BITS)) & MASK);
-    out[(p * CPB + j) * cols + col] = __fmaf_rn(q, s, z);
+      for (int j = 0; j < CPB; ++j) {
+        const int b = j * BITS;
+        __stcs(reinterpret_cast<float4*>(og + (pr * CPB + j) * cols),
+            make_float4(__fmaf_rn(code_at<BITS>(x, b), s.x, z.x),
+                        __fmaf_rn(code_at<BITS>(x, 8 + b), s.y, z.y),
+                        __fmaf_rn(code_at<BITS>(x, 16 + b), s.z, z.z),
+                        __fmaf_rn(code_at<BITS>(x, 24 + b), s.w, z.w)));
+      }
+    }
+    return;
+  }
+  const int n = cols - c < 4 ? static_cast<int>(cols - c) : 4;
+  for (int k = 0; k < n; ++k) {
+    const float s = scale[grp * cols + c + k], z = zero[grp * cols + c + k];
+    for (int pr = slice; pr < prows; pr += kDqSlices) {
+      const uint32_t x = pg[pr * cols + k];
+#pragma unroll
+      for (int j = 0; j < CPB; ++j)
+        og[(pr * CPB + j) * cols + k] =
+            __fmaf_rn(code_at<BITS>(x, j * BITS), s, z);
+    }
   }
 }
 
-// V-style inverse: one thread per packed byte (row, k) of (rows, cols/cpb).
 template <int BITS>
-__global__ void dequantize_cols(const uint8_t* __restrict__ packed,
-                                const float* __restrict__ scale,
-                                const float* __restrict__ zero,
-                                float* __restrict__ out, int64_t rows,
-                                int64_t cols, int gs) {
+__global__ void __launch_bounds__(kThreads)
+    dequantize_rows(const uint8_t* __restrict__ packed,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ zero, float* __restrict__ out,
+                    int64_t cols, int gs, bool wide) {
+  const int64_t grp = blockIdx.x;
+  const int slice = threadIdx.x / (kDqCols / 4);
+  for (int64_t c = static_cast<int64_t>(blockIdx.y) * kDqCols +
+                   4 * (threadIdx.x % (kDqCols / 4));
+       c < cols; c += static_cast<int64_t>(gridDim.y) * kDqCols)
+    dequantize_rows_tile<BITS>(packed, scale, zero, out, cols, gs, wide,
+                               grp, c, slice);
+}
+
+constexpr int kDqUnits = 4;   // units of 4 values a thread of _cols
+
+// V-style inverse: the (rows, cols) output read as one flat run of values,
+// value e the code at bits (e % cpb) * bits of packed byte e / cpb, in
+// group e / gs (groups never straddle rows). A thread takes kDqUnits units
+// of 4 values, unit u = 4 values from e = 4 u: 4 / cpb packed bytes in
+// (one load where the packed base is aligned to them, else a byte at a
+// time) and one float4 store out; neighbouring lanes take neighbouring
+// units, so a warp stores 512 contiguous bytes. Where 4 divides gs a unit
+// lies in group u / (gs / 4) (a shift where gs / 4 is a power of two,
+// upg_shift >= 0) and reads its scale and zero once; else each value finds
+// its own group. The last n_values % 4 values take the same path a value
+// at a time. Index I is uint32_t below 2^32 values, else uint64_t.
+template <int BITS, typename I>
+__global__ void __launch_bounds__(kThreads)
+    dequantize_cols(const uint8_t* __restrict__ packed,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ zero, float* __restrict__ out,
+                    I n_values, int gs, int upg_shift, bool aligned) {
   constexpr int CPB = 8 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  const int64_t bytes_per_row = cols / CPB;
-  const int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                      threadIdx.x;
-  if (idx >= rows * bytes_per_row) return;
-  const int64_t row = idx / bytes_per_row;
-  const int64_t k = idx - row * bytes_per_row;
-  const int64_t g = row * (cols / gs) + (k * CPB) / gs;
-  const float s = scale[g];
-  const float z = zero[g];
-  const uint32_t byte = packed[idx];
-  float* o = out + row * cols + k * CPB;
+  constexpr int UB = 4 / CPB;   // packed bytes a unit
+  const I n_units = (n_values + 3) / 4;
+  const I u0 = static_cast<I>(blockIdx.x) * (kThreads * kDqUnits) +
+               threadIdx.x;
+  uint32_t x[kDqUnits];
 #pragma unroll
-  for (int j = 0; j < CPB; ++j) {
-    const float q = static_cast<float>((byte >> (j * BITS)) & MASK);
-    o[j] = __fmaf_rn(q, s, z);
+  for (int k = 0; k < kDqUnits; ++k) {
+    const I u = u0 + k * kThreads;
+    x[k] = 0;
+    if (u >= n_units) continue;
+    const uint8_t* src = packed + u * UB;
+    if (aligned && 4 * u + 4 <= n_values) {
+      if constexpr (UB == 4) {
+        x[k] = *reinterpret_cast<const uint32_t*>(src);
+      } else if constexpr (UB == 2) {
+        x[k] = *reinterpret_cast<const uint16_t*>(src);
+      } else {
+        x[k] = *src;
+      }
+    } else {
+      const int nb = static_cast<int>((n_values - 4 * u + CPB - 1) / CPB);
+      for (int i = 0; i < nb && i < UB; ++i)
+        x[k] |= uint32_t(src[i]) << (8 * i);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kDqUnits; ++k) {
+    const I u = u0 + k * kThreads, e = 4 * u;
+    if (u >= n_units) continue;
+    if (e + 4 <= n_values && gs % 4 == 0) {
+      const I g = upg_shift >= 0 ? u >> upg_shift : u / static_cast<I>(gs / 4);
+      const float s = scale[g], z = zero[g];
+      __stcs(reinterpret_cast<float4*>(out + e),
+          make_float4(__fmaf_rn(code_at<BITS>(x[k], 0), s, z),
+                      __fmaf_rn(code_at<BITS>(x[k], BITS), s, z),
+                      __fmaf_rn(code_at<BITS>(x[k], 2 * BITS), s, z),
+                      __fmaf_rn(code_at<BITS>(x[k], 3 * BITS), s, z)));
+      continue;
+    }
+    for (int i = 0; i < 4 && e + i < n_values; ++i) {
+      const I g = (e + i) / static_cast<I>(gs);
+      out[e + i] = __fmaf_rn(code_at<BITS>(x[k], i * BITS), scale[g],
+                             zero[g]);
+    }
   }
 }
 
@@ -373,15 +478,38 @@ template <int BITS>
 void launch_dequantize(const uint8_t* packed, const float* scale,
                        const float* zero, float* out, int64_t rows,
                        int64_t cols, int gs, int axis, cudaStream_t stream) {
-  constexpr int CPB = 8 / BITS;
   if (axis == 0) {
-    dequantize_rows<BITS><<<blocks_for((rows / CPB) * cols), kThreads, 0,
-                            stream>>>(packed, scale, zero, out, rows, cols,
-                                      gs);
+    const bool wide = cols % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(packed) % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(zero) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const int64_t tiles = (cols + kDqCols - 1) / kDqCols;
+    const dim3 grid(static_cast<unsigned>(rows / gs),
+                    static_cast<unsigned>(tiles < 65535 ? tiles : 65535));
+    dequantize_rows<BITS><<<grid, kThreads, 0, stream>>>(packed, scale, zero,
+                                                         out, cols, gs, wide);
+    return;
+  }
+  const int64_t n_values = rows * cols;
+  const int upg = gs / 4;   // units a group, where 4 divides gs
+  // log2(upg) where that is a power of two, else -1
+  const int upg_shift = gs % 4 == 0 && (upg & (upg - 1)) == 0
+                            ? __builtin_ctz(static_cast<unsigned>(upg))
+                            : -1;
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(packed) % (4 / (8 / BITS)) == 0;
+  const int64_t units = (n_values + 3) / 4;
+  const unsigned blocks = static_cast<unsigned>(
+      (units + kThreads * kDqUnits - 1) / (kThreads * kDqUnits));
+  if (n_values < (int64_t{1} << 32)) {
+    dequantize_cols<BITS, uint32_t><<<blocks, kThreads, 0, stream>>>(
+        packed, scale, zero, out, static_cast<uint32_t>(n_values), gs,
+        upg_shift, aligned);
   } else {
-    dequantize_cols<BITS><<<blocks_for(rows * (cols / CPB)), kThreads, 0,
-                            stream>>>(packed, scale, zero, out, rows, cols,
-                                      gs);
+    dequantize_cols<BITS, uint64_t><<<blocks, kThreads, 0, stream>>>(
+        packed, scale, zero, out, static_cast<uint64_t>(n_values), gs,
+        upg_shift, aligned);
   }
 }
 

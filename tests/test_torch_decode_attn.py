@@ -138,3 +138,87 @@ def test_ops_refuse_what_they_cannot_take():
         tkernel.decode_attention(q, *(packs[n] for n in NAMES), cur,
                                  bits=4, k_group=32, v_group=32)
 
+
+
+def ring_emulation(q, packs, cur, bits, kg, vg):
+    """decode_ring's order of work in plain torch (f32): the tokens of a
+    plane cut into splits of ``ring_split_len`` tokens, as the kernel cuts
+    them; a split's 64-token tiles taken 8 tokens a warp, each of the eight
+    warps keeping its own online softmax (m, l, acc) over its tokens of
+    every tile; the warps' states merged into the split's, then the splits'
+    into the output, each weighted by exp(m - M). A token past the split
+    scores -inf, one at or past cur_len -1e30."""
+    p, gq, hd = q.shape
+    t = packs["v_packed"].shape[1]
+    k = tref._dequant_rows(packs["k_packed"], packs["k_scale"],
+                           packs["k_zero"], bits, kg, t)
+    v = tref._dequant_cols(packs["v_packed"], packs["v_scale"],
+                           packs["v_zero"], bits, vg)
+    rb = tkernel.ring_rows(gq)
+    sl = tkernel.ring_split_len(t, p * -(-gq // rb))
+
+    def merge(states):
+        m = torch.stack([s[0] for s in states])              # (n, Gq)
+        big = m.max(dim=0).values
+        w = torch.exp(m - big)
+        return (big, (torch.stack([s[1] for s in states]) * w).sum(0),
+                (torch.stack([s[2] for s in states]) * w[..., None]).sum(0))
+
+    out = torch.empty(p, gq, hd)
+    for pi in range(p):
+        splits = []
+        for s0 in range(0, t, sl):
+            s1 = min(t, s0 + sl)
+            warps = []
+            for w in range(8):
+                m = torch.full((gq,), tref.NEG_INF)
+                l, acc = torch.zeros(gq), torch.zeros(gq, hd)
+                for t0 in range(s0, s1, 64):
+                    tok = torch.arange(t0 + 8 * w, t0 + 8 * w + 8)
+                    idx = tok.clamp(max=t - 1)
+                    s = (q[pi] @ k[pi, idx].T) * hd ** -0.5
+                    x = torch.where(tok < int(cur[pi, 0]), s,
+                                    torch.tensor(tref.NEG_INF))
+                    x = torch.where(tok >= s1, torch.tensor(-float("inf")),
+                                    x)
+                    m_new = torch.maximum(m, x.max(dim=1).values)
+                    pr = torch.exp(x - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + pr.sum(1)
+                    acc = acc * alpha[:, None] + pr @ v[pi, idx]
+                    m = m_new
+                warps.append((m, l, acc))
+            splits.append(merge(warps))
+        _, l, acc = merge(splits)
+        out[pi] = acc / l.clamp(min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("ring_blocks", [tkernel.RING_BLOCKS, 8])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_ring_merge_rule_matches_pallas_kernel(bits, ring_blocks,
+                                               monkeypatch):
+    """The CUDA decode_ring's split and merge rule, emulated on the CPU,
+    against the JAX package's kernel in interpret mode, at the module's
+    RING_BLOCKS (five splits of one tile each here) and at 8 (two splits
+    of three tiles and of two). Four planes: cur_len 0 (the uniform mean
+    of all T values), at the first split's edge, and inside the last
+    split, which ends in 48 of a tile's 64 tokens (T 304)."""
+    monkeypatch.setattr(tkernel, "RING_BLOCKS", ring_blocks)
+    rng = np.random.RandomState(20 + bits)
+    p, t, gq, hd, g = 4, 304, 4, 64, 16
+    q = rng.randn(p, gq, hd).astype(np.float32)
+    packs = packed_planes(rng, p, t, hd, bits, g, g)
+    sl = tkernel.ring_split_len(t, p)
+    assert sl == (192 if ring_blocks == 8 else 64)
+    cur = np.asarray([[0], [sl], [t - 5], [t - 100]], np.int32)
+    got = ring_emulation(torch.from_numpy(q), packs, cur, bits, g, g)
+    want = jkernel.fused_decode_attention(
+        jnp.asarray(q), *(jnp.asarray(packs[n].numpy()) for n in NAMES),
+        jnp.asarray(cur), bits=bits, k_group=g, v_group=g, tb=16,
+        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    mean = tref._dequant_cols(packs["v_packed"], packs["v_scale"],
+                              packs["v_zero"], bits, g)[0].mean(0)
+    np.testing.assert_allclose(got[0].numpy(),
+                               mean.expand(gq, hd).numpy(), **TOL)

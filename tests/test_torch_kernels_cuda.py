@@ -13,12 +13,13 @@ share. The attention tolerance, rtol 1e-4 / atol 2e-4, is the reference's
 own kernel tolerance (``tests/test_kernels_fused_prefill.py``), and so is
 the scan's, rtol = atol = 1e-4 (``tests/test_kernels_mamba_scan.py``): the
 kernels sum in another order than the plain versions, in f32 throughout.
-KIVI quantize is held bit for bit.
+KIVI quantize and dequantize are held bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attn import kernel as decode_kernel
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.fused_prefill import kernel as fused_kernel
 from repro_torch.kernels.fused_prefill import ops as fused_ops
@@ -137,27 +138,209 @@ def test_kivi_quantize_bit_equal():
 
 
 @pytest.mark.cuda
+def test_kivi_dequantize_bit_equal():
+    """On the card: KIVI dequantize equals the plain version bit for bit
+    over ``KIVI_CASES``: both groupings, 8, 4 and 2 bits, groups of 3
+    bytes' codes (a V unit of 4 values across two groups), of 24 and up to
+    1024, ragged column counts (K's 203 goes a column at a time), and, where
+    a case has an offset, packed bytes, scales and zeros that many bytes
+    or floats past an aligned address (the value-at-a-time paths)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(41)
+    for bits, axis, g, rows, cols, offset in KIVI_CASES:
+        x = kivi_matrix(rng, rows, cols, bits, g)
+        qt = tkivi.quantize_ref(torch.from_numpy(x), bits, g, axis)
+        want = tkivi.dequantize_ref(qt)
+        parts = []
+        for a in (qt.packed, qt.scale, qt.zero):
+            buf = torch.zeros(a.numel() + offset, dtype=a.dtype,
+                              device="cuda")
+            buf[offset:] = a.reshape(-1).cuda()
+            parts.append(buf[offset:].view(a.shape))
+        got = kivi_kernel.dequantize(*parts, bits, g, axis, x.shape[axis])
+        assert torch.equal(got.cpu(), want), (
+            f"bits {bits} axis {axis} group {g} ({rows}, {cols}) offset "
+            f"{offset}")
+
+
+@pytest.mark.cuda
+def test_kivi_dequantize_large_shapes():
+    """On the card: dequantize past the sizes where its fast indexing
+    stops. V-style over 2^32 + 65536 values (the kernel's 64-bit index
+    path; 17 GB of output), held bit for bit against the plain version on
+    its first and last rows; K-style over 8,388,740 columns, more column
+    tiles than a grid's y dimension holds, held bit for bit everywhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def planes(p_shape, s_shape):
+        packed = torch.randint(0, 256, p_shape, generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        scale = torch.rand(s_shape, generator=gen, device="cuda")
+        zero = torch.randn(s_shape, generator=gen, device="cuda")
+        return packed, scale, zero
+
+    rows, cols, bits, g = 65537, 65536, 4, 64
+    packed, scale, zero = planes((rows, cols // 2), (rows, cols // g))
+    got = kivi_kernel.dequantize(packed, scale, zero, bits, g, 1, cols)
+    for sl in (slice(0, 2), slice(rows - 2, rows)):
+        want = tkivi.dequantize_ref(tkivi.Quantized(
+            packed[sl], scale[sl], zero[sl], bits, g, 1, cols))
+        assert torch.equal(got[sl], want), f"V rows {sl}"
+    del got, packed, scale, zero
+    torch.cuda.empty_cache()
+
+    rows, cols, bits, g = 16, 65535 * 128 + 260, 4, 16
+    packed, scale, zero = planes((rows // 2, cols), (rows // g, cols))
+    got = kivi_kernel.dequantize(packed, scale, zero, bits, g, 0, rows)
+    want = tkivi.dequantize_ref(tkivi.Quantized(packed, scale, zero, bits,
+                                                g, 0, rows))
+    assert torch.equal(got, want), "K past grid.y"
+
+
+# (bits, K group, V group, Gq, T, hd, packed planes offset in bytes): every
+# bit width at the first shapes; Gq 1, 12, 32 and 40 (row blocks of 8); hd
+# 64, 32, 8 and 4 (V rows of 1 and 2 bytes, V groups of 4 and 8 within a
+# 4-byte word); T of 4160 (65 tiles) and 304 (a last tile of 48 tokens);
+# K groups of 128 and 24 (spanning tiles); T not a multiple of 16 (a K
+# group of 12: parts of a stage copied 4 bytes or a byte at a time);
+# planes 4 bytes, 2 bytes and 1 byte past an aligned address (the codes 1
+# and 2 bytes, scales and zeros aligned); groups of a few tokens or
+# channels, whose rings take 2 stages (4 bits, groups of 2) and 1 (8 bits,
+# groups of 1, 8 rows). Every layout takes decode_ring, one launch a call.
+DECODE_CASES = (
+    [(bits, g, g, gq, 320, 128, 0) for bits in (8, 4, 2)
+     for g, gq in ((32, 4), (64, 8), (64, 12))]
+    + [(4, 64, 64, gq, 320, 128, 0) for gq in (1, 32, 40)]
+    + [(4, 64, hd, 4, 320, hd, 0) for hd in (64, 32)]
+    + [(bits, 32, 4, 4, 320, 8, 0) for bits in (8, 4, 2)]
+    + [(2, 16, 4, 2, 192, 4, 0), (8, 16, 4, 3, 192, 4, 0)]
+    + [(4, 64, 64, 4, 4160, 128, 0), (8, 16, 16, 4, 304, 64, 0)]
+    + [(4, 128, 32, 4, 384, 128, 0), (2, 24, 64, 5, 576, 128, 0)]
+    + [(bits, 12, 64, 4, 324, 128, 0) for bits in (8, 4, 2)]
+    + [(4, 64, 64, 4, 320, 128, off) for off in (4, 2, 1)]
+    + [(4, 2, 2, 4, 320, 128, 0), (8, 1, 1, 8, 320, 128, 0),
+       (8, 3, 2, 5, 201, 128, 1)])
+
+
+@pytest.mark.cuda
 def test_decode_attn_matches_plain():
-    """On the card: the CUDA kernel against the plain version, over bits,
-    groups, row counts and valid lengths (``chip_smoke.py`` repeats this
-    at full width)."""
+    """On the card: the CUDA kernel against the plain version over
+    ``DECODE_CASES`` and valid lengths T, partial, 0, at the edge of the
+    first split and inside it; every call is one launch, and bytes past
+    cur_len set to 255 change nothing (``chip_smoke.py`` repeats this at
+    full width)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.RandomState(10)
-    for bits in (8, 4, 2):
-        for g, gq in ((32, 4), (64, 8), (64, 12)):
-            p, t, hd = 3, 320, 128
-            q = torch.from_numpy(rng.randn(p, gq, hd).astype(np.float32))
-            packs = packed_planes(rng, p, t, hd, bits, g, g)
-            for kind in ("full", "partial", "zero"):
-                cur = torch.from_numpy(lengths(kind, p, t))
-                want = decode_ops.decode_attention_planes(
-                    q, *(packs[n] for n in NAMES), cur, bits=bits,
-                    k_group=g, v_group=g)
-                got = decode_ops.decode_attention_planes(
-                    q.cuda(), *(packs[n].cuda() for n in NAMES), cur.cuda(),
-                    bits=bits, k_group=g, v_group=g)
-                torch.testing.assert_close(got.cpu(), want, **TOL)
+    for bits, kg, vg, gq, t, hd, offset in DECODE_CASES:
+        p = 3
+        q = torch.from_numpy(rng.randn(p, gq, hd).astype(np.float32))
+        packs = packed_planes(rng, p, t, hd, bits, kg, vg)
+
+        def to_card(planes):
+            """The planes on the card, ``offset`` bytes past an aligned
+            address."""
+            out = {}
+            for n in NAMES:
+                a, skip = planes[n], offset // planes[n].element_size()
+                buf = torch.zeros(a.numel() + skip, dtype=a.dtype,
+                                  device="cuda")
+                buf[skip:] = a.reshape(-1).cuda()
+                out[n] = buf[skip:].view(a.shape)
+            return out
+
+        on_card = to_card(packs)
+        rb = decode_kernel.ring_rows(gq)
+        sl = decode_kernel.ring_split_len(t, p * -(-gq // rb))
+        edge = np.asarray([[sl], [min(t, 2 * sl)], [sl]], np.int32)
+        first = np.asarray([[sl // 2 + 1], [1], [sl - 1]], np.int32)
+        kinds = {k: lengths(k, p, t) for k in ("full", "partial", "zero")}
+        kinds.update(edge=edge, first=first)
+        what = f"bits {bits} groups {kg}/{vg} Gq {gq} T {t} hd {hd} " \
+               f"offset {offset}"
+        for kind, n in kinds.items():
+            cur = torch.from_numpy(n)
+            want = decode_ops.decode_attention_planes(
+                q, *(packs[n] for n in NAMES), cur, bits=bits, k_group=kg,
+                v_group=vg)
+            before = decode_kernel.LAUNCHES["decode_attn"]
+            got = decode_ops.decode_attention_planes(
+                q.cuda(), *(on_card[n] for n in NAMES), cur.cuda(),
+                bits=bits, k_group=kg, v_group=vg)
+            torch.testing.assert_close(
+                got.cpu(), want, **TOL,
+                msg=lambda m: f"{what} cur_len {kind}: {m}")
+            launches = decode_kernel.LAUNCHES["decode_attn"] - before
+            assert launches == 1, what
+        cur = torch.from_numpy(kinds["partial"]).cuda()
+        spoiled = {n: packs[n].clone() for n in NAMES}
+        for i, m in enumerate(kinds["partial"][:, 0].tolist()):
+            spoiled["k_packed"][i, -(-m // (8 // bits)):] = 255
+            spoiled["v_packed"][i, m:] = 255
+        spoiled = to_card(spoiled)
+        assert torch.equal(
+            decode_ops.decode_attention_planes(
+                q.cuda(), *(spoiled[n] for n in NAMES), cur, bits=bits,
+                k_group=kg, v_group=vg),
+            decode_ops.decode_attention_planes(
+                q.cuda(), *(on_card[n] for n in NAMES), cur, bits=bits,
+                k_group=kg, v_group=vg)), f"{what}: tail bytes"
+
+
+@pytest.mark.cuda
+def test_decode_attn_streams_and_graphs():
+    """On the card: decode_ring's arrival counters under two streams and a
+    CUDA graph. Calls of two layouts (16 splits and 5) queued on two
+    streams at once, each stream with its own counters, match the plain
+    version on every call; the first call on a stream refuses to be
+    captured into a graph, and a graph captured after one call on its
+    stream replays the eager result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(12)
+    calls = []
+    for p, gq, t in ((8, 4, 4096), (3, 8, 320)):
+        q = torch.from_numpy(rng.randn(p, gq, 128).astype(np.float32))
+        packs = packed_planes(rng, p, t, 128, 4, 64, 64)
+        cur = torch.from_numpy(lengths("partial", p, t))
+        want = decode_ops.decode_attention_planes(
+            q, *(packs[n] for n in NAMES), cur, bits=4, k_group=64,
+            v_group=64)
+        args = (q.cuda(), *(packs[n].cuda() for n in NAMES), cur.cuda())
+        calls.append((args, want))
+    kw = dict(bits=4, k_group=64, v_group=64)
+    streams = [torch.cuda.Stream() for _ in calls]
+    outs = [[] for _ in calls]
+    torch.cuda.synchronize()
+    for _ in range(50):
+        for (args, _), st, out in zip(calls, streams, outs):
+            with torch.cuda.stream(st):
+                out.append(decode_ops.decode_attention_planes(*args, **kw))
+    torch.cuda.synchronize()
+    for (_, want), out in zip(calls, outs):
+        for got in out:
+            torch.testing.assert_close(got.cpu(), want, **TOL)
+
+    args, want = calls[0]
+    graph = torch.cuda.CUDAGraph()
+    fresh = torch.cuda.Stream()
+    with pytest.raises(RuntimeError, match="captured"):
+        with torch.cuda.graph(graph, stream=fresh):
+            decode_ops.decode_attention_planes(*args, **kw)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        decode_ops.decode_attention_planes(*args, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = decode_ops.decode_attention_planes(*args, **kw)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), want, **TOL)
 
 
 # (bits, K group, V group, C, T, hd, q scale): the first nine at the
