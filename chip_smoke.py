@@ -98,8 +98,28 @@ stops the run with a non-zero exit when it fails:
              decode step must agree with the prefill in f32 (the same
              weights widened), within a relative logit error of 1e-4; the
              bf16 error is printed beside it.
+6. training — after phase 5's model is freed (the memory left is printed):
+             (a) smoke adaptcache-8b in f32 takes 5 steps of
+             ``make_train_step`` on the card and on the CPU from one init,
+             on the recall pipeline (seq 192, batch 8) under the serve
+             driver's WSD schedule: each step's loss within 1e-3 relative,
+             the first grad norm within 1e-4. The train driver
+             (``repro_torch.launch.train``) takes 20 smoke steps on the card
+             with a checkpoint every 10, then resumes from step 20, its
+             leaves bit-equal to the saved ones. (b) full-width
+             adaptcache-8b (8.03 B params, bf16, int8 AdamW state, remat,
+             seeded init) on the recall pipeline at batch 2 x seq 512: the
+             chunked loss of step 0 against the plain cross-entropy of
+             ``Model.forward`` (1e-3 relative), then 4 timed steps, each
+             printed with its loss, grad norm, wall time (synchronized;
+             ``adamw_update``'s share beside it), tokens/s, peak memory and
+             model FLOPs share (6 N tokens over the step time at 989
+             TFLOP/s); every loss and grad norm must be finite and every
+             leaf must change in the first step. One more step is profiled
+             as in phase 3. Training reaches no hand-written kernel.
 
-The line before the last is the ``kernels`` JSON line; the last line is
+The line before the last is the ``kernels`` JSON line, and the one before it
+phase 6's ``training`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Measurements also go to
 ``chiprun_out/chip_smoke.json``.
 The measured fused calibration goes beside it (``fused_calibration.json``).
@@ -110,6 +130,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -166,6 +187,14 @@ SCAN = (dict(b=1, s=640, d=8192, n=16, h0=0.0),
         dict(b=2, s=577, d=8192, n=16, h0=0.1))
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's kernel-vs-ref
 DECODE_TOL_F32 = 1e-4   # the port's f32 logit tolerance (CPU parity tests)
+# phase 6: smoke training on the card against the CPU (f32, the serve
+# driver's recall pipeline and schedule), then full-width adaptcache-8b
+SMOKE_TRAIN_STEPS, SMOKE_SEQ, SMOKE_BATCH = 150, 192, 8
+CARD_CPU_LOSS_RTOL = 1e-3       # each step's loss
+CARD_CPU_GNORM_RTOL = 1e-4      # the first step's grad norm
+FULL_SEQ, FULL_BATCH, TRAIN_STEPS = 512, 2, 4
+FULL_TRAIN_LR = 3e-3            # the smoke schedule's peak: bf16 leaves move
+CE_RTOL = 1e-3                  # chunked loss against the plain one
 
 
 def ptxas_usage(log: str):
@@ -806,30 +835,38 @@ def summarize_profile(events, device_type) -> dict:
             "kivi_ms": share(r"quantize_(rows|cols)") / 1e3}
 
 
-def profile_request(engine, request, label: str) -> dict:
-    """``torch.profiler`` (CPU and CUDA activities) over ``engine.process``
-    of one request, summarized by ``summarize_profile`` and printed."""
+def profile_call(fn, label: str, shares=("scan", "kivi")):
+    """``torch.profiler`` (CPU and CUDA activities) over ``fn()``,
+    summarized by ``summarize_profile`` and printed with the shares of the
+    kernels named in ``shares``. Returns (the summary, ``fn``'s result)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        result = engine.process([request])[0]
+        result = fn()
         torch.cuda.synchronize()
     out = summarize_profile(prof.events(), DeviceType.CUDA)
-    out["hit_tier"] = result.hit_tier
     busy = out["busy_ms"]
-    print(f"  profile of one {label} request (hit tier {result.hit_tier}): "
-          f"window {out['window_ms']:.1f} ms, device busy {busy:.1f} ms, "
-          f"idle share {out['idle_share']:.4f}")
+    print(f"  profile of {label}: window {out['window_ms']:.1f} ms, device "
+          f"busy {busy:.1f} ms, idle share {out['idle_share']:.4f}")
     for i, op in enumerate(out["top"], 1):
         print(f"    {i:2d}. {op['ms']:9.3f} ms {op['calls']:6d} calls "
               f"{100 * op['ms'] / busy:5.1f} % of busy  {op['name'][:90]}")
-    for what in ("scan", "kivi"):
+    for what in shares:
         ms = out[f"{what}_ms"]
         print(f"    {what}: {ms:.3f} ms, {100 * ms / busy:.2f} % of busy, "
               f"{100 * ms / out['window_ms']:.3f} % of the window")
+    return out, result
+
+
+def profile_request(engine, request, label: str) -> dict:
+    """``profile_call`` over ``engine.process`` of one request."""
+    out, result = profile_call(lambda: engine.process([request])[0],
+                               f"one {label} request")
+    out["hit_tier"] = result.hit_tier
+    print(f"    hit tier of the profiled request: {result.hit_tier}")
     return out
 
 
@@ -1177,6 +1214,233 @@ def phase_mamba(scan_kernel):
             "answer_tokens": len(answer), "profile": prof}
 
 
+def train_batches(cfg, seq: int, batch: int, n: int, device):
+    """``n`` batches of the recall pipeline (seed 0) as long tensors."""
+    from repro_torch.training.data import Pipeline, PipelineConfig
+
+    pipe = Pipeline(PipelineConfig(cfg.vocab_size, seq, batch,
+                                   kind="recall"))
+    return [{k: torch.as_tensor(v, dtype=torch.long, device=device)
+             for k, v in pipe.next_batch().items()} for _ in range(n)]
+
+
+def train_card_vs_cpu() -> dict:
+    """5 f32 steps of smoke adaptcache-8b from one init, on the card and on
+    the CPU, on the same batches, under the serve driver's schedule."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import smoke_opt_config
+    from repro_torch.models import build_model
+    from repro_torch.training import tree as tree_lib
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import TrainState, make_train_step
+
+    cfg = get_config(ARCH, smoke=True)
+    model = build_model(cfg)
+    opt = smoke_opt_config(SMOKE_TRAIN_STEPS)
+    params = model.init(0, "cpu")
+    devices = {"card": "cuda", "cpu": "cpu"}
+    states = {}
+    for where, dev in devices.items():
+        p = tree_lib.map_leaves(lambda t: t.to(dev, copy=True), params)
+        states[where] = TrainState(p, adamw_init(opt, p))
+    step = make_train_step(model, opt)
+    rows = []
+    for i, b in enumerate(train_batches(cfg, SMOKE_SEQ, SMOKE_BATCH, 5,
+                                        "cpu")):
+        met = {}
+        for where, dev in devices.items():
+            states[where], m = step(states[where],
+                                    {k: v.to(dev) for k, v in b.items()})
+            met[where] = {k: float(v) for k, v in m.items()}
+        card, cpu = met["card"], met["cpu"]
+        loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        gn_rel = (abs(card["grad_norm"] - cpu["grad_norm"])
+                  / abs(cpu["grad_norm"]))
+        rows.append({"step": i, "card": card, "cpu": cpu,
+                     "loss_rel_err": loss_rel, "grad_norm_rel_err": gn_rel})
+        print(f"  step {i}: loss card {card['loss']:.6f} cpu "
+              f"{cpu['loss']:.6f} (rel {loss_rel:.2e}), grad norm card "
+              f"{card['grad_norm']:.6f} cpu {cpu['grad_norm']:.6f} (rel "
+              f"{gn_rel:.2e})")
+        if not all(math.isfinite(v) for d in met.values() for v in d.values()):
+            fail(f"smoke training step {i}: non-finite metrics {met}")
+        if not loss_rel <= CARD_CPU_LOSS_RTOL:
+            fail(f"smoke training step {i}: the card's loss differs from "
+                 f"the CPU's by {loss_rel:.3g} (limit {CARD_CPU_LOSS_RTOL:g})")
+        if i == 0 and not gn_rel <= CARD_CPU_GNORM_RTOL:
+            fail(f"smoke training step 0: the card's grad norm differs from "
+                 f"the CPU's by {gn_rel:.3g} (limit {CARD_CPU_GNORM_RTOL:g})")
+    return {"steps": rows}
+
+
+def train_driver_resume() -> dict:
+    """The train driver on the card: 20 smoke steps with a checkpoint every
+    10, then a second run with --resume, which must restore step 20's
+    leaves bit for bit on the card."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_driver
+    from repro_torch.training import tree as tree_lib
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        args = ["--arch", ARCH, "--smoke", "--steps", "20", "--ckpt-every",
+                "10", "--ckpt-dir", ckpt, "--device", "cuda"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            first = train_driver.train(args)
+            again = train_driver.train(args + ["--resume"])
+        wall_s = time.perf_counter() - t0
+        on_disk = sorted(os.listdir(ckpt))
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"    {line}")
+    if "resumed from step 20" not in text or int(again.opt.step) != 20:
+        fail("the train driver did not resume at step 20")
+    if on_disk != ["LATEST", "step_10", "step_20"]:
+        fail(f"checkpoint directory holds {on_disk}")
+    a, b = tree_lib.leaves(first), tree_lib.leaves(again)
+    if len(a) != len(b) or not all(
+            y.device.type == "cuda" and x.dtype == y.dtype
+            and torch.equal(x, y) for x, y in zip(a, b)):
+        fail("the resumed state differs from the saved one")
+    print(f"  train driver: 20 steps, checkpoints {on_disk[1:]}, resumed at "
+          f"step 20 with all {len(b)} leaves bit-equal on the card "
+          f"({wall_s:.1f} s)")
+    return {"leaves": len(b), "checkpoints": on_disk, "wall_s": wall_s}
+
+
+def train_full_width() -> dict:
+    """Full-width adaptcache-8b, bf16, int8 AdamW state, remat: the chunked
+    loss against the plain cross-entropy at step 0, TRAIN_STEPS timed
+    steps (every leaf must change in the first), then one profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.layers import cross_entropy_loss
+    from repro_torch.training import train_step as train_step_mod
+    from repro_torch.training import tree as tree_lib
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import init_train_state
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=FULL_TRAIN_LR, int8_state=True)
+    t0 = time.perf_counter()
+    state = init_train_state(model, 0, opt, "cuda")
+    torch.cuda.synchronize()
+    n_params = model.param_count(state.params)
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_lib.leaves(state.opt))
+    print(f"  {ARCH}: {n_params:,} params ({cfg.param_dtype}), int8 AdamW "
+          f"state {opt_bytes / 1e9:.2f} GB, init "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    batches = train_batches(cfg, FULL_SEQ, FULL_BATCH, TRAIN_STEPS + 1,
+                            "cuda")
+    tokens = FULL_SEQ * FULL_BATCH
+
+    # step 0: the chunked loss (128-token chunks) and the train step's own
+    # loss (one 512-token chunk) against the plain cross-entropy
+    with torch.no_grad():
+        chunked = float(transformer.loss_fn(state.params, cfg, batches[0],
+                                            loss_chunk=128))
+        plain = float(cross_entropy_loss(model.forward(state.params,
+                                                       batches[0]),
+                                         batches[0]["labels"]))
+    ce_rel = abs(chunked - plain) / abs(plain)
+    print(f"  step 0 loss: chunked {chunked:.6f}, plain cross-entropy "
+          f"{plain:.6f} (rel {ce_rel:.2e})")
+    if not (math.isfinite(plain) and ce_rel <= CE_RTOL):
+        fail(f"chunked loss {chunked} against plain {plain}: rel "
+             f"{ce_rel:.3g} (limit {CE_RTOL:g})")
+
+    # time adamw_update inside each step (synchronized on both sides)
+    adamw_update = train_step_mod.adamw_update
+    opt_s = []
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        u0 = time.perf_counter()
+        out = adamw_update(*args, **kw)
+        torch.cuda.synchronize()
+        opt_s.append(time.perf_counter() - u0)
+        return out
+
+    step_fn = train_step_mod.make_train_step(model, opt, remat=True)
+    before = [t.to("cpu", copy=True) for t in tree_lib.leaves(state.params)]
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    train_step_mod.adamw_update = timed_update
+    try:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            state, m = step_fn(state, batches[i])
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - s0
+            del m
+            row = {"step": i, "loss": loss, "grad_norm": gnorm,
+                   "step_s": dt, "adamw_s": opt_s[-1],
+                   "tokens_per_s": tokens / dt,
+                   "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "model_flops_share": 6 * n_params * tokens
+                   / (dt * BF16_OPS)}
+            rows.append(row)
+            print(f"  step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+                  f"{dt * 1e3:.1f} ms (adamw_update {opt_s[-1] * 1e3:.1f} "
+                  f"ms), {row['tokens_per_s']:.0f} tokens/s, peak "
+                  f"{row['max_memory_gb']:.2f} GB, model FLOPs share "
+                  f"{row['model_flops_share']:.4f}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                fail(f"full-width step {i}: loss {loss}, grad norm {gnorm}")
+            if i == 0:
+                changed = [float((x.to("cuda") != y).count_nonzero())
+                           / y.numel() for x, y in
+                           zip(before, tree_lib.leaves(state.params))]
+                del before
+                if min(changed) == 0.0:
+                    fail(f"{changed.count(0.0)} of {len(changed)} leaves "
+                         "unchanged after step 1")
+                print(f"  after step 1 all {len(changed)} leaves changed "
+                      f"(each in {min(changed):.4f}-{max(changed):.4f} of "
+                      "its elements)")
+    finally:
+        train_step_mod.adamw_update = adamw_update
+    profile, _ = profile_call(
+        lambda: step_fn(state, batches[TRAIN_STEPS]),
+        f"one full-width train step ({FULL_BATCH} x {FULL_SEQ} tokens)",
+        shares=())
+    steady = sorted(r["step_s"] for r in rows[1:])
+    step_s = steady[len(steady) // 2]
+    out = {"n_params": n_params, "opt_state_gb": opt_bytes / 1e9,
+           "batch": FULL_BATCH, "seq": FULL_SEQ, "lr": FULL_TRAIN_LR,
+           "ce_chunked": chunked, "ce_plain": plain, "ce_rel_err": ce_rel,
+           "leaves_changed_frac_min": min(changed), "steps": rows,
+           "median_step_s": step_s, "tokens_per_s": tokens / step_s,
+           "model_flops_share": 6 * n_params * tokens / (step_s * BF16_OPS),
+           "max_memory_gb": max(r["max_memory_gb"] for r in rows),
+           "profile": profile}
+    del state, batches
+    return out
+
+
+def phase_training(card: str) -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free on the card")
+    print("  (a) smoke adaptcache-8b, f32: the card against the CPU")
+    card_cpu = train_card_vs_cpu()
+    driver = train_driver_resume()
+    print(f"  (b) full-width {ARCH}, bf16, int8 AdamW state, remat, on "
+          f"{card}")
+    full = train_full_width()
+    return {"card_vs_cpu": card_cpu, "driver": driver, "full_width": full}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -1207,7 +1471,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    print("[1/5] build")
+    print("[1/6] build")
     attn_kernels = {"decode_attn": decode_kernel,
                     "fused_prefill": fused_kernel,
                     "flash_attention": flash_kernel}
@@ -1224,7 +1488,7 @@ def main() -> int:
         for kname, usage in ptxas_usage(log):
             print(f"    ptxas {kname}: {usage}")
 
-    print("[2/5] kernels against the plain version")
+    print("[2/6] kernels against the plain version")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
     phase_kivi_layouts(kernel, ref)
     timed_rows = {
@@ -1237,20 +1501,24 @@ def main() -> int:
     decode_layouts_err = phase_decode_layouts(decode_ops, decode_ref,
                                               decode_kernel)
 
-    print("[3/5] serving full-width adaptcache-8b through build_engine")
+    print("[3/6] serving full-width adaptcache-8b through build_engine")
     summary, launches, wall_s, serving, profile3 = phase_serving()
 
-    print("[4/5] fused compute: kernel_bench calibration, then serving "
+    print("[4/6] fused compute: kernel_bench calibration, then serving "
           "priced with it")
     fused = phase_fused(attn_kernels, summary, serving)
 
-    print("[5/5] serving full-width falcon-mamba-7b through build_engine")
+    print("[5/6] serving full-width falcon-mamba-7b through build_engine")
     del serving                            # free adaptcache-8b's weights
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  adaptcache-8b freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
           "GB left on the card")
     mamba = phase_mamba(scan_kernel)
+
+    print("[6/6] training: the card against the CPU, the train driver's "
+          "resume, full-width adaptcache-8b")
+    training = phase_training(smi)
 
     entries = []
     for op in ("quantize", "dequantize"):
@@ -1307,10 +1575,28 @@ def main() -> int:
         "decode_layouts_max_abs_err": decode_layouts_err,
         "kernels": entries, "summary": summary, "launches": launches,
         "engine_wall_s": wall_s, "profile_phase3": profile3,
-        "fused": fused, "mamba": mamba},
+        "fused": fused, "mamba": mamba, "training": training},
         indent=1, default=float))
     (out_dir / "fused_calibration.json").write_text(
         json.dumps(fused["calibration"], indent=2))
+    full = training["full_width"]
+    print(json.dumps({"training": {
+        "card": smi,
+        "card_vs_cpu_loss_rel_err_max": max(
+            r["loss_rel_err"] for r in training["card_vs_cpu"]["steps"]),
+        "card_vs_cpu_grad_norm_rel_err_step0":
+            training["card_vs_cpu"]["steps"][0]["grad_norm_rel_err"],
+        "resume_leaves_bit_equal": training["driver"]["leaves"],
+        **{k: full[k] for k in (
+            "n_params", "batch", "seq", "median_step_s", "tokens_per_s",
+            "model_flops_share", "max_memory_gb", "ce_rel_err")},
+        "losses": [r["loss"] for r in full["steps"]],
+        "grad_norms": [r["grad_norm"] for r in full["steps"]],
+        "adamw_s": [r["adamw_s"] for r in full["steps"]],
+        "profile_idle_share": full["profile"]["idle_share"],
+        "profile_busy_ms": full["profile"]["busy_ms"],
+        "profile_top3": [op["name"][:60] for op in
+                         full["profile"]["top"][:3]]}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,12 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch adaptcache-8b \
         --policy adaptive --alpha 0.01 --rate 0.5 --duration 60 \
-        [--device cuda|cpu] [--fit-estimator] [--replicas N] [--lanes K]
+        [--train-steps 150] [--device cuda|cpu] [--fit-estimator] \
+        [--replicas N] [--lanes K]
 
 The same flags as ``repro.launch.serve``, plus ``--device`` (CUDA unless
-``--device cpu``). Training is not ported yet (ROADMAP §A6), so the smoke
-model serves from its seeded random init: ``--train-steps`` stays 0 and
-any other value raises. Optionally fits the paper's offline quality
+``--device cpu``). Trains the smoke model on the recall task first (so
+compression has a measurable quality effect; ``--train-steps 0`` serves
+from the seeded init), optionally fits the paper's offline quality
 estimator, then serves a Poisson workload on the duplex-async event
 engine (loads/prefills overlap decode, inserts and MCKP moves queue on
 write channels, ``--prefetch N`` enables speculative SSD->DRAM
@@ -38,8 +39,10 @@ import argparse
 import sys
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.serving.baselines import build_engine, fit_quality_estimator
 from repro_torch.serving.engine import summarize
@@ -48,6 +51,40 @@ from repro_torch.serving.workload import (
     DEFAULT_TENANTS, make_contexts, make_tenant_workload, poisson_requests,
 )
 from repro_torch.storage.topology import StorageTopology
+from repro_torch.training.data import Pipeline, PipelineConfig
+from repro_torch.training.optimizer import AdamWConfig, wsd_schedule
+from repro_torch.training.train_step import init_train_state, make_train_step
+
+
+def smoke_opt_config(steps: int) -> AdamWConfig:
+    """The smoke model's optimizer: AdamW under a WSD schedule peaking at
+    3e-3 over ``steps`` steps."""
+    return AdamWConfig(lr=wsd_schedule(3e-3, steps // 10, steps // 2,
+                                       steps // 3))
+
+
+def train_smoke_model(cfg, steps: int = 150, seq: int = 192, batch: int = 8,
+                      seed: int = 0, device="cuda"):
+    """Train ``cfg``'s model on the recall pipeline for ``steps`` steps
+    from ``seed``'s init on ``device``; returns (model, params). With 0
+    steps the params are the seeded init."""
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    opt_cfg = smoke_opt_config(steps)
+    state = init_train_state(model, seed, opt_cfg, dev)
+    if steps == 0:
+        print("no training steps: serving from the seeded init")
+        return model, state.params
+    step_fn = make_train_step(model, opt_cfg)
+    pipe = Pipeline(PipelineConfig(cfg.vocab_size, seq, batch, kind="recall",
+                                   seed=seed))
+    for _ in range(steps):
+        b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in pipe.next_batch().items()}
+        state, m = step_fn(state, b)
+    print(f"smoke model trained {steps} steps, final loss "
+          f"{float(m['loss']):.4f}")
+    return model, state.params
 
 
 def main(argv=None) -> int:
@@ -65,10 +102,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rate", type=float, default=0.5, help="req/s")
     ap.add_argument("--duration", type=float, default=90.0)
     ap.add_argument("--contexts-per-task", type=int, default=4)
-    ap.add_argument("--train-steps", type=int, default=0,
-                    help="training is not ported yet (ROADMAP §A6): the "
-                         "model serves from its seeded init, so only 0 "
-                         "is accepted")
+    ap.add_argument("--train-steps", type=int, default=150)
     ap.add_argument("--fit-estimator", action="store_true")
     ap.add_argument("--dram-entries", type=float, default=3.0)
     ap.add_argument("--ssd-entries", type=float, default=12.0)
@@ -168,10 +202,6 @@ def main(argv=None) -> int:
                     help="torch device the model and the KIVI kernel run "
                          "on (cuda unless 'cpu' is asked for)")
     args = ap.parse_args(argv)
-    if args.train_steps:
-        raise NotImplementedError(
-            "--train-steps: training is ported by ROADMAP §A6; the port "
-            "serves from the seeded init (--train-steps 0)")
     if (args.readahead_pages or args.remainder_cache) and not args.paged:
         ap.error("--readahead-pages and --remainder-cache are page-native "
                  "features: add --paged")
@@ -183,8 +213,8 @@ def main(argv=None) -> int:
 
     smoke_cfg = get_config(args.arch, smoke=True)
     full_cfg = get_config(args.arch)
-    model = build_model(smoke_cfg)
-    params = model.init(args.seed, device=args.device)
+    model, params = train_smoke_model(smoke_cfg, args.train_steps,
+                                      device=args.device)
     runner = ModelRunner(model, params, capacity=1024)
 
     rng = np.random.RandomState(args.seed)

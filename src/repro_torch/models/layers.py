@@ -1,4 +1,5 @@
-"""Shared primitives: RMSNorm, RoPE (partial-rotary), the gated MLP.
+"""Shared primitives: RMSNorm, RoPE (partial-rotary), the gated MLP, the
+cross-entropy loss.
 
 Counterpart of ``repro.models.layers``: plain functions over a parameter
 dict, same math and layouts.
@@ -62,3 +63,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def mlp_fwd(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     return h @ p["wo"]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy; labels == ignore_index are masked out."""
+    logits = logits.to(torch.float32)
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

@@ -1,4 +1,5 @@
-"""Public model API: ``build_model(cfg)`` -> Model (init / prefill / decode)."""
+"""Public model API: ``build_model(cfg)`` -> Model (init / loss / prefill /
+decode)."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +25,14 @@ class Model:
         """Seeded random parameters on ``device`` (CUDA unless asked)."""
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         return transformer.init_params(gen, self.cfg)
+
+    def forward(self, params, batch, remat: bool = False):
+        logits, _aux = transformer.forward_train(params, self.cfg, batch,
+                                                 remat=remat)
+        return logits
+
+    def loss(self, params, batch, remat: bool = False):
+        return transformer.loss_fn(params, self.cfg, batch, remat=remat)
 
     def prefill(self, params, batch, capacity: int):
         return transformer.prefill(params, self.cfg, batch, capacity)

@@ -17,12 +17,21 @@ reference's layout, so a JAX param pytree carries across leaf for leaf
 The reference scans over the stacked groups with ``lax.scan``; here a
 Python loop walks them, indexing views of the stacked tensors. Prefill and
 decode write the cache in place.
+
+Training (``forward_train``, ``loss_fn``) splits each stacked leaf once a
+step with ``unbind``: indexing ``leaf[g]`` a layer would, in backward, add a
+zero tensor of the whole stack into the gradient once a layer, where
+``unbind``'s backward stacks the layers' gradients once. Remat wraps each
+layer group in ``torch.utils.checkpoint`` (the reference: ``jax.checkpoint``
+on the scanned group body), which changes memory, not the numbers.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttnKind, FFNKind, LayerKind, ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -47,6 +56,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder is {_LATER}")
     if cfg.n_patches:
         raise NotImplementedError(f"{cfg.name}: vision patches are {_LATER}")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for layers the port's training cannot differentiate: a Mamba
+    layer's prefill runs the CUDA selective scan, which has no backward."""
+    if LayerKind.MAMBA in cfg.layer_kinds():
+        raise NotImplementedError(
+            f"{cfg.name}: training through Mamba layers needs a backward "
+            "selective-scan kernel, ROADMAP §A11 (Mamba training)")
 
 
 def _pattern(cfg: ModelConfig) -> Tuple[Tuple[LayerKind, ...], int]:
@@ -220,6 +238,33 @@ def _run_stack(params: Params, cfg: ModelConfig, x, positions,
     return x
 
 
+def _unbind(tree, n: int) -> List[Params]:
+    """The ``n`` layer groups of stacked leaves, each leaf split once."""
+    parts = _map_leaves(lambda _, leaf: leaf.unbind(0), tree)
+    return [_map_leaves(lambda _, p: p[g], parts) for g in range(n)]
+
+
+def _train_stack(params: Params, cfg: ModelConfig, x, positions,
+                 remat: bool):
+    """The layer stack for training: no cache, each stacked leaf split
+    once (``_unbind``), each group under ``checkpoint`` with ``remat``."""
+    check_trainable(cfg)
+    pattern, n_groups = _pattern(cfg)
+    groups = list(zip(*(_unbind(params["stack"][j], n_groups)
+                        for j in range(len(pattern)))))
+
+    def group(x, g: int):
+        for bp, kind in zip(groups[g], pattern):
+            x = _apply_block(bp, cfg, kind, x, positions, None, None,
+                             decode=False)
+        return x
+
+    for g in range(n_groups):
+        x = (checkpoint(group, x, g, use_reentrant=False) if remat
+             else group(x, g))
+    return x
+
+
 # ---------------------------------------------------------------------------
 # embeddings and heads
 # ---------------------------------------------------------------------------
@@ -229,16 +274,77 @@ def embed_inputs(params: Params, cfg: ModelConfig,
     return params["embed"][batch["tokens"]].to(_dtype(cfg.dtype))
 
 
+def _head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return x @ _head_matrix(params, cfg)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    return torch.arange(s, device=x.device).expand(b, s)
 
 
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+def forward_train(params: Params, cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor], remat: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced logits over the full sequence. Returns (logits, aux);
+    aux (the MoE balance loss in the reference) is 0 for the families the
+    port has."""
+    x = embed_inputs(params, cfg, batch)
+    x = _train_stack(params, cfg, x, _positions(x), remat)
+    return lm_logits(params, cfg, x), x.new_zeros((), dtype=torch.float32)
+
+
+def chunked_ce_loss(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512,
+                    ignore_index: int = -1) -> torch.Tensor:
+    """Cross-entropy over the vocab without one (B, S, V) logits tensor:
+    the (B, S, d) final hiddens are walked in sequence chunks, each giving
+    one (B, chunk, V) logits block reduced to (nll_sum, count). Under
+    autograd each chunk's logits stay saved for the backward, as the
+    reference's scan keeps its residuals."""
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = _head_matrix(params, cfg)
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=ignore_index)
+        s = s + pad
+    nll_sum = x.new_zeros((), dtype=torch.float32)
+    cnt = torch.zeros((), dtype=torch.long, device=x.device)
+    for off in range(0, s, chunk):
+        logits = (x[:, off:off + chunk] @ head).to(torch.float32)
+        lab = labels[:, off:off + chunk]
+        mask = lab != ignore_index
+        safe = torch.where(mask, lab, 0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, safe[..., None])[..., 0]
+        nll = torch.where(mask, logz - gold, 0.0)
+        nll_sum = nll_sum + nll.sum()
+        cnt = cnt + mask.sum()
+    return nll_sum / torch.clamp(cnt, min=1)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01, remat: bool = False,
+            loss_chunk: int = 512) -> torch.Tensor:
+    x = embed_inputs(params, cfg, batch)
+    x = _train_stack(params, cfg, x, _positions(x), remat)
+    aux = x.new_zeros((), dtype=torch.float32)
+    loss = chunked_ce_loss(params, cfg, x, batch["labels"], chunk=loss_chunk)
+    return loss + aux_weight * aux
+
 
 @torch.no_grad()
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -251,9 +357,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     b, s, _ = x.shape
     if s > capacity:
         raise ValueError(f"prompt of {s} tokens exceeds capacity {capacity}")
-    positions = torch.arange(s, device=x.device).expand(b, s)
     cache = init_cache(cfg, b, capacity, x.device)
-    x = _run_stack(params, cfg, x, positions, cache, None, decode=False)
+    x = _run_stack(params, cfg, x, _positions(x), cache, None, decode=False)
     return lm_logits(params, cfg, x[:, -1:, :]), cache
 
 

@@ -234,9 +234,11 @@ def test_serve_driver_falcon_mamba_on_cpu():
     with contextlib.redirect_stdout(buf):
         rc = tserve.main(["--arch", ARCH, "--device", "cpu", "--duration",
                           "6", "--rate", "1", "--contexts-per-task", "1",
-                          "--policy", "kivi:0.16", "--lanes", "1"])
+                          "--policy", "kivi:0.16", "--lanes", "1",
+                          "--train-steps", "0"])
     assert rc == 0
     text = buf.getvalue()
+    assert "serving from the seeded init" in text
     assert "=== serving summary ===" in text and "hit_rate" in text
 
 

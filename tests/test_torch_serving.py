@@ -152,19 +152,46 @@ def _flags(path: Path):
 
 
 def test_serve_driver_flags_and_run():
+    """The port's flags are the reference's plus --device, with the same
+    --train-steps default (150); a CPU run trains the smoke model, prints
+    its loss, then serves."""
     ref = _flags(ROOT / "src/repro/launch/serve.py")
     port = _flags(ROOT / "src/repro_torch/launch/serve.py")
     assert port == ref | {"--device"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--device", "cpu", "--train-steps", "5"])
+    default = r"\"--train-steps\", type=int, default=(\d+)"
+    assert (re.findall(default, (ROOT / "src/repro_torch/launch/serve.py")
+                       .read_text())
+            == re.findall(default, (ROOT / "src/repro/launch/serve.py")
+                          .read_text()) == ["150"])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = tserve.main(["--device", "cpu", "--duration", "6", "--rate",
-                          "1", "--contexts-per-task", "1", "--policy",
+        rc = tserve.main(["--device", "cpu", "--train-steps", "2",
+                          "--duration", "6", "--rate", "1",
+                          "--contexts-per-task", "1", "--policy",
                           "kivi:0.16", "--lanes", "1"])
     assert rc == 0
     text = buf.getvalue()
+    assert re.search(r"smoke model trained 2 steps, final loss \d+\.\d+",
+                     text)
     assert "=== serving summary ===" in text and "hit_rate" in text
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.main(["--duration", "1"])
+
+
+def test_train_steps_0_serves_the_seeded_init():
+    """The reference's ``train_smoke_model`` with 0 steps reads the metrics
+    of a step it never took (an UnboundLocalError, ROADMAP C); the port's
+    returns the seeded init, which the serve driver then serves."""
+    from repro.launch import serve as jserve
+    with pytest.raises(UnboundLocalError):
+        jserve.train_smoke_model(jget("adaptcache-8b", smoke=True), 0)
+    cfg = tget("adaptcache-8b", smoke=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        model, params = tserve.train_smoke_model(cfg, 0, device="cpu")
+    assert "serving from the seeded init" in buf.getvalue()
+    init = model.init(0, "cpu")
+    assert torch.equal(params["embed"], init["embed"])
+    assert torch.equal(params["stack"][0]["ffn"]["wo"],
+                       init["stack"][0]["ffn"]["wo"])
