@@ -53,7 +53,12 @@ stops the run with a non-zero exit when it fails:
              (D 8192, N 16): (B 1, S 640), (B 1, S 4096) and (B 2,
              S 577, h0 != 0), y and hT within rtol 1e-4 / atol 1e-4, timed
              the same way, beside its byte bound and its SFU floor (one
-             exponential a (t, d, n) step at 16 a clock on each SM).
+             exponential a (t, d, n) step at 16 a clock on each SM). The
+             scan's backward kernel at the same three cases and at the
+             training shape (B 2, S 512), with a random dy and the gradient
+             of hT absent and present, against the plain backward: each
+             gradient within 1e-4 of its largest magnitude, two calls
+             bit-equal; timed the same way beside its bound.
 3. serving — full-width adaptcache-8b (32 layers, d_model 4096, bf16,
              seeded random weights, ~16 GB) behind ``build_engine`` with the
              fixed KIVI policy, so every insert compresses and every hit
@@ -116,10 +121,27 @@ stops the run with a non-zero exit when it fails:
              model FLOPs share (6 N tokens over the step time at 989
              TFLOP/s); every loss and grad norm must be finite and every
              leaf must change in the first step. One more step is profiled
-             as in phase 3. Training reaches no hand-written kernel.
+             as in phase 3. Training adaptcache-8b reaches no hand-written
+             kernel.
+7. mamba training — after phase 6 frees its model: (a) smoke
+             falcon-mamba-7b in f32, 5 steps on the card and on the CPU
+             from one init, held as in phase 6 (a): the card's steps run the
+             scan's forward with checkpoints and its backward kernel. Then
+             the serve driver (``repro_torch.launch.serve --arch
+             falcon-mamba-7b``) trains the smoke model for its default 150
+             steps on the card and serves it. (b) full-width falcon-mamba-7b
+             (64 layers, 7,006,326,784 seeded params, bf16, int8 AdamW state,
+             remat) on the recall pipeline at batch 2 x seq 512, as phase 6
+             (b) but at lr 1e-2 (dt_bias, bf16 at magnitudes up to 6.9,
+             moves only past half its ulp, 2^-7 to 2^-6; at 3e-3 it cannot
+             move): the scan's counters are zeroed just before the second
+             step and read just after: 128 forward launches (each layer
+             twice under remat) and 64 backward calls.
 
-The line before the last is the ``kernels`` JSON line, and the one before it
-phase 6's ``training`` summary; the last line is
+The line before the last is the ``kernels`` JSON line (its
+``selective_scan_bwd`` launches are phase 7's counted step), and the two
+before it phase 6's ``training`` and phase 7's ``mamba_training``
+summaries; the last line is
 ``{"ok": true, "device": {...}}``. Measurements also go to
 ``chiprun_out/chip_smoke.json``.
 The measured fused calibration goes beside it (``fused_calibration.json``).
@@ -164,7 +186,8 @@ REPLACES = {"quantize": "src/repro/kernels/kivi/kernel.py:71",
             "decode_attn": "src/repro/kernels/decode_attn/kernel.py:133",
             "fused_prefill": "src/repro/kernels/fused_prefill/kernel.py:127",
             "flash_attention": "src/repro/kernels/prefill_attn/kernel.py:73",
-            "selective_scan": "src/repro/kernels/mamba_scan/kernel.py:76"}
+            "selective_scan": "src/repro/kernels/mamba_scan/kernel.py:76",
+            "selective_scan_bwd": "jax.grad of src/repro/models/mamba.py:121"}
 SOURCE = "src/repro_torch/kernels/kivi/csrc/kivi.cu"
 SOURCES = {"decode_attn": "src/repro_torch/kernels/decode_attn/csrc/"
                           "decode_attn.cu",
@@ -173,7 +196,9 @@ SOURCES = {"decode_attn": "src/repro_torch/kernels/decode_attn/csrc/"
            "flash_attention": "src/repro_torch/kernels/prefill_attn/csrc/"
                               "flash_attn.cu",
            "selective_scan": "src/repro_torch/kernels/mamba_scan/csrc/"
-                             "selective_scan.cu"}
+                             "selective_scan.cu",
+           "selective_scan_bwd": "src/repro_torch/kernels/mamba_scan/csrc/"
+                                 "selective_scan.cu"}
 # full-width adaptcache-8b: 32 query heads over 8 KV heads, head dim 128,
 # KIVI group 64; decode (P planes, Gq rows, T tokens), fused (P planes,
 # C-token chunk, T-token prefix), flash (B, S, H, Kv)
@@ -186,6 +211,14 @@ SCAN = (dict(b=1, s=640, d=8192, n=16, h0=0.0),
         dict(b=1, s=4096, d=8192, n=16, h0=0.0),
         dict(b=2, s=577, d=8192, n=16, h0=0.1))
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)   # the reference's kernel-vs-ref
+# the scan's backward: SCAN's cases and the training shape (full-width
+# falcon-mamba at batch 2 x 512); each gradient within rtol 1e-4 and an atol
+# of 1e-4 times its largest magnitude (the forward's tolerance: it
+# recomputes the forward's states with the kernel's expf, and sums dB and dC
+# over D channels, da over B S steps, in another order)
+SCAN_BWD = SCAN + (dict(b=2, s=512, d=8192, n=16, h0=0.0),)
+SCAN_BWD_TOL = 1e-4
+GRADS = ("ddt", "dx", "dbs", "dcs", "da", "dh0")
 DECODE_TOL_F32 = 1e-4   # the port's f32 logit tolerance (CPU parity tests)
 # phase 6: smoke training on the card against the CPU (f32, the serve
 # driver's recall pipeline and schedule), then full-width adaptcache-8b
@@ -194,6 +227,10 @@ CARD_CPU_LOSS_RTOL = 1e-3       # each step's loss
 CARD_CPU_GNORM_RTOL = 1e-4      # the first step's grad norm
 FULL_SEQ, FULL_BATCH, TRAIN_STEPS = 512, 2, 4
 FULL_TRAIN_LR = 3e-3            # the smoke schedule's peak: bf16 leaves move
+# falcon-mamba's dt_bias is stored in bf16 at magnitudes 2.3-6.9 (the
+# inverse softplus of 0.001-0.1), where a step moves an element only past
+# half its ulp, 2^-7 to 2^-6: at 1e-2 the elements under 4 in magnitude move
+MAMBA_TRAIN_LR = 1e-2
 CE_RTOL = 1e-3                  # chunked loss against the plain one
 
 
@@ -683,6 +720,78 @@ def phase_selective_scan(ops, ref):
     return rows, worst
 
 
+def scan_bwd_bytes(b: int, s: int, d: int, n: int, n_ckpt: int,
+                   with_dht: bool) -> int:
+    """Bytes the backward must move: dt, x, dy, B, C, a, the checkpoints (h0
+    among them) and dhT read once, the six gradients written once."""
+    reads = 3 * b * s * d + 2 * b * s * n + d * n + b * n_ckpt * d * n
+    writes = 2 * b * s * d + 2 * b * s * n + d * n + b * d * n
+    return 4 * (reads + writes + (b * d * n if with_dht else 0))
+
+
+def phase_selective_scan_bwd(kernel, ref):
+    """The scan's backward kernel against the plain backward at each case of
+    ``SCAN_BWD``, with a random dy and dhT absent and present: each gradient
+    within ``SCAN_BWD_TOL`` of its largest magnitude, two calls bit-equal.
+    Timed with dhT absent (training drops hT) as the forward is, beside its
+    bound: the bytes, or one exponential a (b, t, d, n) on the SFU, whichever
+    is larger (the kernel recomputes e_t, two exponentials: that floor is
+    printed beside)."""
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, worst = [], 0.0
+    for i, case in enumerate(SCAN_BWD):
+        b, s, d, n = case["b"], case["s"], case["d"], case["n"]
+        args = scan_inputs(case, seed=60 + i)
+        _, _, ckpt = kernel.selective_scan(*args, checkpoints=True)
+        gen = torch.Generator(device="cuda").manual_seed(70 + i)
+        dy = torch.randn((b, s, d), generator=gen, device="cuda")
+        dht = torch.randn((b, d, n), generator=gen, device="cuda")
+        errs = {}
+        for dh in (None, dht):
+            got = kernel.selective_scan_bwd(*args[:5], ckpt, dy, dh)
+            again = kernel.selective_scan_bwd(*args[:5], ckpt, dy, dh)
+            want = ref.selective_scan_bwd_ref(*args, dy, dh)
+            what = f"selective_scan_bwd {case} dhT {dh is not None}"
+            for name, g, a, w in zip(GRADS, got, again, want):
+                if not torch.equal(g, a):
+                    fail(f"{what} {name}: two calls differ")
+                top = float(w.abs().max())
+                err = close_err(f"{what} {name}", g, w,
+                                dict(rtol=SCAN_BWD_TOL,
+                                     atol=SCAN_BWD_TOL * top))
+                errs[name] = max(errs.get(name, 0.0), err / top)
+                worst = max(worst, err)
+        n_bytes = scan_bwd_bytes(b, s, d, n, ckpt.shape[1], False)
+        exps = b * s * d * n
+        sfu_ms = exps / (SFU_PER_CLOCK * sms * clock) * 1e3
+        t_bytes = n_bytes / HBM_BPS * 1e3
+        t, by = (t_bytes, "bytes") if t_bytes >= sfu_ms else (sfu_ms,
+                                                              "operations")
+        kern = lambda: kernel.selective_scan_bwd(*args[:5], ckpt, dy, None)
+        plain = lambda: ref.selective_scan_bwd_ref(*args, dy, None)
+        row = {"shape": dict(case), "ms": device_ms(kern, calls=10),
+               "plain_ms": device_ms(plain, calls=1),
+               "call_ms": time_ms(kern, reps=20),
+               "plain_call_ms": time_ms(plain, reps=2, warmup=1),
+               "bound_ms": t, "bound_by": by, "bytes": n_bytes,
+               "exps": exps, "sm_clock_hz": clock, "sfu_ms": sfu_ms,
+               "sfu_ms_recompute": 2 * sfu_ms, "rel_err": errs,
+               "max_abs_err": worst, "library_ms": None}
+        rows.append(row)
+        print(f"  selective_scan_bwd (B, S, D, N)=({b}, {s}, {d}, {n}), h0 "
+              f"scale {case['h0']}, dhT absent and present: within "
+              f"{SCAN_BWD_TOL:g} of each gradient's largest magnitude (worst "
+              f"{max(errs.values()):.2e}), two calls bit-equal; device "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+              f"{t:.4f} by {by}, two-exponential SFU floor "
+              f"{2 * sfu_ms:.4f}); per call {row['call_ms']:.4f} ms (plain "
+              f"{row['plain_call_ms']:.4f})")
+        del args, ckpt, dy, dht
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def kv_matrix(rows: int, cols: int, bits: int, seed: int) -> torch.Tensor:
     """K/V-like values with the cases that test rounding: a spread of
     scales, constant groups (scale 0) and, where the top code allows it,
@@ -810,7 +919,8 @@ def summarize_profile(events, device_type) -> dict:
     """From a profiler's events: the device's busy time (the union of its
     activities' intervals) and idle share over the profiled window (the
     first to the last event, host or device), the ten device operations
-    with the most total time, and the selective scan's and KIVI's totals."""
+    with the most total time, and the selective scan's (forward, and
+    backward with the sum of its partials) and KIVI's totals."""
     dev = [e for e in events if e.device_type == device_type]
     if not dev:
         fail("the profile recorded no device activity")
@@ -831,7 +941,7 @@ def summarize_profile(events, device_type) -> dict:
             "idle_share": 1.0 - busy / window,
             "top": [{"name": k, "ms": total[k] / 1e3, "calls": calls[k]}
                     for k in top],
-            "scan_ms": share(r"scan_fwd") / 1e3,
+            "scan_ms": share(r"scan_(fwd|bwd)|sum_parts") / 1e3,
             "kivi_ms": share(r"quantize_(rows|cols)") / 1e3}
 
 
@@ -1146,6 +1256,8 @@ def phase_mamba(scan_kernel):
              f"engine.process: want a positive multiple of {cfg.n_layers}")
     if launches["quantize_k"] + launches["quantize_v"] <= 0:
         fail("KIVI quantize never launched during engine.process")
+    if launches["selective_scan_bwd"] != 0:
+        fail("serving launched the scan's backward")
     print(f"  hit rate {summary['hit_rate']}: the reference sizes its tiers "
           "from kv_bytes_per_token(), which counts attention layers only, "
           "so on this model each tier holds 1.5 or 6 bytes and every state "
@@ -1224,9 +1336,9 @@ def train_batches(cfg, seq: int, batch: int, n: int, device):
              for k, v in pipe.next_batch().items()} for _ in range(n)]
 
 
-def train_card_vs_cpu() -> dict:
-    """5 f32 steps of smoke adaptcache-8b from one init, on the card and on
-    the CPU, on the same batches, under the serve driver's schedule."""
+def train_card_vs_cpu(arch: str = ARCH) -> dict:
+    """5 f32 steps of smoke ``arch`` from one init, on the card and on the
+    CPU, on the same batches, under the serve driver's schedule."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import smoke_opt_config
     from repro_torch.models import build_model
@@ -1234,7 +1346,7 @@ def train_card_vs_cpu() -> dict:
     from repro_torch.training.optimizer import adamw_init
     from repro_torch.training.train_step import TrainState, make_train_step
 
-    cfg = get_config(ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
     opt = smoke_opt_config(SMOKE_TRAIN_STEPS)
     params = model.init(0, "cpu")
@@ -1311,10 +1423,13 @@ def train_driver_resume() -> dict:
     return {"leaves": len(b), "checkpoints": on_disk, "wall_s": wall_s}
 
 
-def train_full_width() -> dict:
-    """Full-width adaptcache-8b, bf16, int8 AdamW state, remat: the chunked
-    loss against the plain cross-entropy at step 0, TRAIN_STEPS timed
-    steps (every leaf must change in the first), then one profiled step."""
+def train_full_width(arch: str = ARCH, lr: float = FULL_TRAIN_LR,
+                     counted=None, want_launches=None) -> dict:
+    """Full-width ``arch``, bf16, int8 AdamW state, remat: the chunked loss
+    against the plain cross-entropy at step 0, TRAIN_STEPS timed steps
+    (every leaf must change in the first), then one profiled step. With
+    ``counted`` (a kernel module), its ``LAUNCHES`` are zeroed just before
+    the second step and read just after, and must equal ``want_launches``."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, transformer
     from repro_torch.models.layers import cross_entropy_loss
@@ -1323,16 +1438,16 @@ def train_full_width() -> dict:
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import init_train_state
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
-    opt = AdamWConfig(lr=FULL_TRAIN_LR, int8_state=True)
+    opt = AdamWConfig(lr=lr, int8_state=True)
     t0 = time.perf_counter()
     state = init_train_state(model, 0, opt, "cuda")
     torch.cuda.synchronize()
     n_params = model.param_count(state.params)
     opt_bytes = sum(t.numel() * t.element_size()
                     for t in tree_lib.leaves(state.opt))
-    print(f"  {ARCH}: {n_params:,} params ({cfg.param_dtype}), int8 AdamW "
+    print(f"  {arch}: {n_params:,} params ({cfg.param_dtype}), int8 AdamW "
           f"state {opt_bytes / 1e9:.2f} GB, init "
           f"{time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
@@ -1370,10 +1485,14 @@ def train_full_width() -> dict:
     step_fn = train_step_mod.make_train_step(model, opt, remat=True)
     before = [t.to("cpu", copy=True) for t in tree_lib.leaves(state.params)]
     rows = []
-    torch.cuda.reset_peak_memory_stats()
     train_step_mod.adamw_update = timed_update
     try:
         for i in range(TRAIN_STEPS):
+            if counted is not None and i == 1:
+                counted.LAUNCHES.update(dict.fromkeys(counted.LAUNCHES, 0))
+            # each step's own peak, without the leaf check's copies after
+            # step 0 (a copy and a mask of the largest leaf)
+            torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             s0 = time.perf_counter()
             state, m = step_fn(state, batches[i])
@@ -1381,6 +1500,12 @@ def train_full_width() -> dict:
             torch.cuda.synchronize()
             dt = time.perf_counter() - s0
             del m
+            if counted is not None and i == 1:
+                launches = dict(counted.LAUNCHES)
+                print(f"  kernel launches in step 1: {launches}")
+                if launches != want_launches:
+                    fail(f"step 1 launched {launches}, want "
+                         f"{want_launches}")
             row = {"step": i, "loss": loss, "grad_norm": gnorm,
                    "step_s": dt, "adamw_s": opt_s[-1],
                    "tokens_per_s": tokens / dt,
@@ -1401,8 +1526,11 @@ def train_full_width() -> dict:
                            zip(before, tree_lib.leaves(state.params))]
                 del before
                 if min(changed) == 0.0:
-                    fail(f"{changed.count(0.0)} of {len(changed)} leaves "
-                         "unchanged after step 1")
+                    names = ["/".join(map(str, path)) for (path, _), c in zip(
+                        tree_lib.flatten_with_paths(state.params), changed)
+                        if c == 0.0]
+                    fail(f"{len(names)} of {len(changed)} leaves unchanged "
+                         f"after step 1: {names}")
                 print(f"  after step 1 all {len(changed)} leaves changed "
                       f"(each in {min(changed):.4f}-{max(changed):.4f} of "
                       "its elements)")
@@ -1411,17 +1539,19 @@ def train_full_width() -> dict:
     profile, _ = profile_call(
         lambda: step_fn(state, batches[TRAIN_STEPS]),
         f"one full-width train step ({FULL_BATCH} x {FULL_SEQ} tokens)",
-        shares=())
+        shares=() if counted is None else ("scan",))
     steady = sorted(r["step_s"] for r in rows[1:])
     step_s = steady[len(steady) // 2]
     out = {"n_params": n_params, "opt_state_gb": opt_bytes / 1e9,
-           "batch": FULL_BATCH, "seq": FULL_SEQ, "lr": FULL_TRAIN_LR,
+           "batch": FULL_BATCH, "seq": FULL_SEQ, "lr": lr,
            "ce_chunked": chunked, "ce_plain": plain, "ce_rel_err": ce_rel,
            "leaves_changed_frac_min": min(changed), "steps": rows,
            "median_step_s": step_s, "tokens_per_s": tokens / step_s,
            "model_flops_share": 6 * n_params * tokens / (step_s * BF16_OPS),
            "max_memory_gb": max(r["max_memory_gb"] for r in rows),
            "profile": profile}
+    if counted is not None:
+        out["launches"] = launches
     del state, batches
     return out
 
@@ -1438,6 +1568,55 @@ def phase_training(card: str) -> dict:
     print(f"  (b) full-width {ARCH}, bf16, int8 AdamW state, remat, on "
           f"{card}")
     full = train_full_width()
+    return {"card_vs_cpu": card_cpu, "driver": driver, "full_width": full}
+
+
+def serve_driver_mamba(scan_kernel) -> dict:
+    """The serve driver for falcon-mamba-7b on the card at its default
+    training steps: it trains the smoke model (through the scan's forward
+    and backward kernels), then serves it."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_driver
+
+    scan_kernel.LAUNCHES.update(dict.fromkeys(scan_kernel.LAUNCHES, 0))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_driver.main(["--arch", MAMBA_ARCH, "--duration", "30"])
+    wall_s = time.perf_counter() - t0
+    launches = dict(scan_kernel.LAUNCHES)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"    {line}")
+    trained = f"smoke model trained {SMOKE_TRAIN_STEPS} steps"
+    if rc != 0 or trained not in text or "=== serving summary ===" not in text:
+        fail(f"the serve driver for {MAMBA_ARCH} returned {rc} without "
+             f"'{trained}' and a serving summary")
+    if launches["selective_scan_bwd"] <= 0 or launches["selective_scan"] <= 0:
+        fail(f"the serve driver's training launched {launches}")
+    print(f"  serve driver: trained {SMOKE_TRAIN_STEPS} steps and served "
+          f"({wall_s:.1f} s); scan launches {launches}")
+    return {"rc": rc, "wall_s": wall_s, "launches": launches}
+
+
+def phase_mamba_training(card: str, scan_kernel) -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    print(f"  (a) smoke {MAMBA_ARCH}, f32: the card against the CPU")
+    card_cpu = train_card_vs_cpu(MAMBA_ARCH)
+    driver = serve_driver_mamba(scan_kernel)
+    print(f"  (b) full-width {MAMBA_ARCH}, bf16, int8 AdamW state, remat, on "
+          f"{card}")
+    from repro_torch.configs import get_config
+    layers = get_config(MAMBA_ARCH).n_layers
+    # remat runs each layer's forward twice: once in the step, once again
+    # in its backward
+    full = train_full_width(MAMBA_ARCH, MAMBA_TRAIN_LR, counted=scan_kernel,
+                            want_launches={"selective_scan": 2 * layers,
+                                           "selective_scan_bwd": layers})
     return {"card_vs_cpu": card_cpu, "driver": driver, "full_width": full}
 
 
@@ -1471,7 +1650,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    print("[1/6] build")
+    print("[1/7] build")
     attn_kernels = {"decode_attn": decode_kernel,
                     "fused_prefill": fused_kernel,
                     "flash_attention": flash_kernel}
@@ -1488,7 +1667,7 @@ def main() -> int:
         for kname, usage in ptxas_usage(log):
             print(f"    ptxas {kname}: {usage}")
 
-    print("[2/6] kernels against the plain version")
+    print("[2/7] kernels against the plain version")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
     phase_kivi_layouts(kernel, ref)
     timed_rows = {
@@ -1496,19 +1675,21 @@ def main() -> int:
         "fused_prefill": phase_fused_prefill(fused_ops, fused_ref),
         "flash_attention": phase_flash_attention(flash_ops, flash_ref),
         "selective_scan": phase_selective_scan(scan_ops, scan_ref),
+        "selective_scan_bwd": phase_selective_scan_bwd(scan_kernel,
+                                                       scan_ref),
     }
     fused_split_err = phase_fused_split(fused_ops, fused_ref, fused_kernel)
     decode_layouts_err = phase_decode_layouts(decode_ops, decode_ref,
                                               decode_kernel)
 
-    print("[3/6] serving full-width adaptcache-8b through build_engine")
+    print("[3/7] serving full-width adaptcache-8b through build_engine")
     summary, launches, wall_s, serving, profile3 = phase_serving()
 
-    print("[4/6] fused compute: kernel_bench calibration, then serving "
+    print("[4/7] fused compute: kernel_bench calibration, then serving "
           "priced with it")
     fused = phase_fused(attn_kernels, summary, serving)
 
-    print("[5/6] serving full-width falcon-mamba-7b through build_engine")
+    print("[5/7] serving full-width falcon-mamba-7b through build_engine")
     del serving                            # free adaptcache-8b's weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -1516,9 +1697,13 @@ def main() -> int:
           "GB left on the card")
     mamba = phase_mamba(scan_kernel)
 
-    print("[6/6] training: the card against the CPU, the train driver's "
+    print("[6/7] training: the card against the CPU, the train driver's "
           "resume, full-width adaptcache-8b")
     training = phase_training(smi)
+
+    print("[7/7] Mamba training: the card against the CPU, the serve "
+          "driver's training, full-width falcon-mamba-7b")
+    mamba_training = phase_mamba_training(smi, scan_kernel)
 
     entries = []
     for op in ("quantize", "dequantize"):
@@ -1542,15 +1727,21 @@ def main() -> int:
     cases = []
     for kname, (rows, err) in timed_rows.items():
         # the main path's case: 4-bit KIVI prefix; f32 flash attention;
-        # the scan at (B 1, S 640)
-        row = rows[0] if kname in ("flash_attention", "selective_scan") \
-            else next(r for r in rows if r["bits"] == MAIN_BITS)
+        # the scan at (B 1, S 640); its backward at the training shape
+        if kname == "selective_scan_bwd":
+            row = rows[-1]
+        elif kname in ("flash_attention", "selective_scan"):
+            row = rows[0]
+        else:
+            row = next(r for r in rows if r["bits"] == MAIN_BITS)
         cases.append((kname, kname, row, row.get("max_abs_err", err), kname))
     # flash attention's bf16 row: the tensor-core kernel, its own count
     bf16_row = timed_rows["flash_attention"][0][1]
     cases.append(("flash_attention_bf16", "flash_attention", bf16_row,
                   bf16_row["max_abs_err"], "flash_attention_mma"))
-    counts = {**fused["launches"], **mamba["launches"]}
+    counts = {**fused["launches"], **mamba["launches"],
+              "selective_scan_bwd": mamba_training["full_width"]["launches"][
+                  "selective_scan_bwd"]}
     for ename, kname, row, err, count in cases:
         entries.append({
             "name": ename,
@@ -1575,7 +1766,8 @@ def main() -> int:
         "decode_layouts_max_abs_err": decode_layouts_err,
         "kernels": entries, "summary": summary, "launches": launches,
         "engine_wall_s": wall_s, "profile_phase3": profile3,
-        "fused": fused, "mamba": mamba, "training": training},
+        "fused": fused, "mamba": mamba, "training": training,
+        "mamba_training": mamba_training},
         indent=1, default=float))
     (out_dir / "fused_calibration.json").write_text(
         json.dumps(fused["calibration"], indent=2))
@@ -1597,6 +1789,25 @@ def main() -> int:
         "profile_busy_ms": full["profile"]["busy_ms"],
         "profile_top3": [op["name"][:60] for op in
                          full["profile"]["top"][:3]]}}))
+    mfull = mamba_training["full_width"]
+    print(json.dumps({"mamba_training": {
+        "card": smi,
+        "card_vs_cpu_loss_rel_err_max": max(
+            r["loss_rel_err"] for r in mamba_training["card_vs_cpu"]["steps"]),
+        "card_vs_cpu_grad_norm_rel_err_step0":
+            mamba_training["card_vs_cpu"]["steps"][0]["grad_norm_rel_err"],
+        "serve_driver_scan_launches": mamba_training["driver"]["launches"],
+        **{k: mfull[k] for k in (
+            "n_params", "batch", "seq", "median_step_s", "tokens_per_s",
+            "model_flops_share", "max_memory_gb", "ce_rel_err", "launches")},
+        "losses": [r["loss"] for r in mfull["steps"]],
+        "grad_norms": [r["grad_norm"] for r in mfull["steps"]],
+        "adamw_s": [r["adamw_s"] for r in mfull["steps"]],
+        "profile_idle_share": mfull["profile"]["idle_share"],
+        "profile_busy_ms": mfull["profile"]["busy_ms"],
+        "profile_scan_ms": mfull["profile"]["scan_ms"],
+        "profile_top3": [op["name"][:60] for op in
+                         mfull["profile"]["top"][:3]]}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

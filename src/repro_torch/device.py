@@ -1,9 +1,23 @@
 """Device selection shared by the port's entry points and kernel ops."""
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
+
+
+def cap_test_threads() -> int:
+    """Give torch's CPU thread pool this process's share of the cores.
+
+    pytest-xdist runs ``PYTEST_XDIST_WORKER_COUNT`` worker processes side by
+    side; each would otherwise keep one intra-op thread a core, and six such
+    workers on eight cores spend most of their time contending. The test
+    files call this at import. Returns the thread count set."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    n = max(1, (os.cpu_count() or 1) // workers)
+    torch.set_num_threads(n)
+    return n
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:

@@ -7,7 +7,9 @@
 //   h_t = exp(dt_t * a) * h_{t-1} + (dt_t * x_t) * B_t,  y_t = sum_n C_t h_t
 // dt, x (B, S, D); bs, cs (B, S, N); a (D, N), negative; h0 (B, D, N)
 // -> y (B, S, D) and hT (B, D, N), all f32, contiguous. The operation
-// order is the plain version's (ref.py), expf included.
+// order is the plain version's (ref.py), expf included. Under training the
+// forward also writes the state entering each chunk, and the backward
+// (scan_bwd, further down) recomputes each chunk's states from it.
 //
 // What bounds it. Three floors, at B 1, D 8192, N 16 (S 640 / S 4096):
 // - bytes: dt, x, bs, cs, a, h0 read once, y and hT written once,
@@ -67,6 +69,12 @@ constexpr int kThreads = 128;
 constexpr int kSub = 8;               // time steps whose exps go together
 constexpr int kStages = 3;            // chunks in shared memory at once
 constexpr int kStatesPerThread = 4;   // P, measured on the card (PERF.md)
+
+// P for state size N: kStatesPerThread, or N where N is smaller
+template <int N>
+constexpr int states_per_thread() {
+  return N < kStatesPerThread ? N : kStatesPerThread;
+}
 
 template <int N, int P>
 struct Tile {
@@ -206,12 +214,16 @@ __device__ __forceinline__ void reduce_scatter(float (&acc)[K], int lane,
   }
 }
 
-template <int N, int P, int W>
+// With kCkpt, the state entering each chunk (h0 for the first) is also
+// written to ckpt (B, ceil(S / kChunk), D, N): what the backward
+// recomputes a chunk's states from. Without it, ckpt is not touched.
+template <int N, int P, int W, bool kCkpt>
 __global__ void __launch_bounds__(kThreads)
     scan_fwd(const float* __restrict__ dt, const float* __restrict__ x,
              const float* __restrict__ bs, const float* __restrict__ cs,
              const float* __restrict__ a, const float* __restrict__ h0,
-             float* __restrict__ y, float* __restrict__ hT, int S, int D) {
+             float* __restrict__ y, float* __restrict__ hT,
+             float* __restrict__ ckpt, int S, int D) {
   using T = Tile<N, P>;
   constexpr int kLanes = T::kLanes, kCh = T::kCh, kChunk = T::kChunk;
   __shared__ __align__(16) Stage<N, P> st[kStages];
@@ -249,6 +261,15 @@ __global__ void __launch_bounds__(kThreads)
     commit_copies();
     const Stage<N, P>& s = st[stage];
     stage = stage == kStages - 1 ? 0 : stage + 1;
+    if constexpr (kCkpt) {
+      if (live) {
+        const int64_t nck = (S + kChunk - 1) / kChunk;
+        float* const ck =
+            ckpt + ((b * nck + t0 / kChunk) * D + d) * static_cast<int64_t>(N);
+#pragma unroll
+        for (int p = 0; p < P; ++p) ck[n0 + p] = h[p];
+      }
+    }
 
     // kSub steps at a time: first every exp and input term of the group
     // (independent of h, so they overlap), then the FMA chain over h, then
@@ -300,17 +321,295 @@ __global__ void __launch_bounds__(kThreads)
 template <int N>
 cudaError_t launch(const float* dt, const float* x, const float* bs,
                    const float* cs, const float* a, const float* h0,
-                   float* y, float* hT, int B, int S, int D, bool wide,
-                   cudaStream_t stream) {
-  constexpr int kP = N < kStatesPerThread ? N : kStatesPerThread;
+                   float* y, float* hT, float* ckpt, int B, int S, int D,
+                   bool wide, cudaStream_t stream) {
+  constexpr int kP = states_per_thread<N>();
   constexpr int kCh = Tile<N, kP>::kCh;
   const dim3 grid((D + kCh - 1) / kCh, B);
-  if (wide)
-    scan_fwd<N, kP, 4><<<grid, kThreads, 0, stream>>>(dt, x, bs, cs, a, h0,
-                                                      y, hT, S, D);
+  decltype(&scan_fwd<N, kP, 4, false>) kernel;
+  if (ckpt)
+    kernel = wide ? &scan_fwd<N, kP, 4, true> : &scan_fwd<N, kP, 1, true>;
   else
-    scan_fwd<N, kP, 1><<<grid, kThreads, 0, stream>>>(dt, x, bs, cs, a, h0,
-                                                      y, hT, S, D);
+    kernel = wide ? &scan_fwd<N, kP, 4, false> : &scan_fwd<N, kP, 1, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(dt, x, bs, cs, a, h0, y, hT, ckpt, S,
+                                        D);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The backward: the scan's vector-Jacobian product (what jax.grad derives
+// from the reference's lax.scan at src/repro/models/mamba.py:121; the TPU
+// package has no backward kernel). ref.py's selective_scan_bwd_ref is its
+// plain version. With g_t the gradient of h_t and e_t = exp(dt_t a):
+//   g_{S-1} = dhT + dy_{S-1} C_{S-1},  g_t = g_{t+1} e_{t+1} + dy_t C_t
+//   dx_t = dt_t sum_n g_t B_t,  ddt_t = sum_n g_t (a e_t h_{t-1} + x_t B_t)
+//   dB_t = sum_d g_t dt_t x_t,  dC_t = sum_d dy_t h_t
+//   da = sum_{b,t} g_t e_t h_{t-1} dt_t,  dh0 = g_0 e_0
+//
+// What bounds it. At B 2, S 512, D 8192, N 16 (the training shape): bytes,
+// dt, x, dy, B, C, a, the checkpoints (h0 among them) and dhT read and the
+// six gradients written, about 185 MB, 0.055 ms at 3.35 TB/s; the SFU, one
+// exponential a (b, t, d, n) at the least (0.032 ms), two in this design,
+// which recomputes e_t rather than keep it (0.064 ms at 1.98 GHz).
+//
+// The design, a first version that is right, not yet fast (about ten
+// times its bound at the training shape; PERF.md):
+// - one block per (batch b, kCh channels), the forward's thread layout: a
+//   thread owns P states of one channel, a channel's N states on N / P lanes.
+// - it walks the chunks last to first. A chunk's dt, x, dy, B and C are
+//   staged in shared memory (zero past S and D); its states are recomputed
+//   from the chunk's checkpoint with the forward's arithmetic, each thread
+//   keeping its h_{t-1} of every step in shared memory; then the reverse
+//   recurrence runs over them, g and the da partials in registers.
+// - dx_t and ddt_t are sums over a channel's lanes: shuffles, as the
+//   forward's y. dB_t and dC_t are sums over every channel: shuffles over a
+//   warp's channels, then the block's warps in order through shared memory,
+//   written as one partial a block; da sums over B, one partial a batch.
+//   A second launch (sum_parts) adds the partials in a fixed order. No
+//   float atomics: two calls give bit-equal gradients.
+// - the decay factor is expf, as in the forward.
+
+constexpr int kWarps = kThreads / 32;
+
+template <int N, int P>
+struct BwdSmem {
+  using T = Tile<N, P>;
+  static constexpr int kStates = T::kChunk * kThreads * P;  // h_{t-1}
+  static constexpr int kRows = T::kChunk * T::kCh;          // dt, x, dy
+  static constexpr int kSel = T::kChunk * N;                // B, C
+  static constexpr int kRed = kWarps * T::kChunk * N;       // dB, dC sums
+  static constexpr int kFloats = kStates + 3 * kRows + 2 * kSel + 2 * kRed;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+};
+
+template <int P>
+__device__ __forceinline__ void store_states(float* s, const float (&v)[P]) {
+  if constexpr (P == 4) {
+    *reinterpret_cast<float4*>(s) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (P == 2) {
+    *reinterpret_cast<float2*>(s) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p) s[p] = v[p];
+  }
+}
+
+// dt, x, dy (B, S, D); bs, cs (B, S, N); a (D, N); ckpt (B, ceil(S /
+// kChunk), D, N); dhT (B, D, N) or null -> ddt, dx (B, S, D); the partials
+// dbs_part, dcs_part (gridDim.x, B, S, N) and da_part (B, D, N); dh0
+// (B, D, N) unless null.
+template <int N, int P>
+__global__ void __launch_bounds__(kThreads)
+    scan_bwd(const float* __restrict__ dt, const float* __restrict__ x,
+             const float* __restrict__ bs, const float* __restrict__ cs,
+             const float* __restrict__ a, const float* __restrict__ ckpt,
+             const float* __restrict__ dy, const float* __restrict__ dhT,
+             float* __restrict__ ddt, float* __restrict__ dx,
+             float* __restrict__ dbs_part, float* __restrict__ dcs_part,
+             float* __restrict__ da_part, float* __restrict__ dh0, int S,
+             int D) {
+  using T = Tile<N, P>;
+  using M = BwdSmem<N, P>;
+  constexpr int kLanes = T::kLanes, kCh = T::kCh, kChunk = T::kChunk;
+  extern __shared__ __align__(16) float smem[];
+  float* const hs = smem;                    // [kChunk][kThreads * P]
+  float* const sdt = hs + M::kStates;        // [kChunk][kCh]
+  float* const sx = sdt + M::kRows;
+  float* const sdy = sx + M::kRows;
+  float* const sb = sdy + M::kRows;          // [kChunk][N]
+  float* const sc = sb + M::kSel;
+  float* const red_b = sc + M::kSel;         // [kWarps][kChunk][N]
+  float* const red_c = red_b + M::kRed;
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int b = blockIdx.y, B = gridDim.y;
+  const int d0 = blockIdx.x * kCh;
+  const int c = tid / kLanes, lane = tid % kLanes, n0 = lane * P;
+  const int d = d0 + c;
+  const bool live = d < D;
+  const int64_t row0 = static_cast<int64_t>(b) * S;      // (b, t = 0)
+  const int64_t state0 = (static_cast<int64_t>(b) * D + d) * N + n0;
+  const int nck = (S + kChunk - 1) / kChunk;
+
+  float g[P], av[P], da_acc[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    g[p] = live && dhT ? dhT[state0 + p] : 0.f;
+    av[p] = live ? a[static_cast<int64_t>(d) * N + n0 + p] : 0.f;
+    da_acc[p] = 0.f;
+  }
+
+  for (int k = nck - 1; k >= 0; --k) {
+    const int t0 = k * kChunk;
+    const int steps = S - t0 < kChunk ? S - t0 : kChunk;
+    __syncthreads();                 // the last chunk's shared reads are done
+    for (int q = tid; q < M::kRows; q += kThreads) {
+      const int r = q / kCh, dd = d0 + q % kCh;
+      const bool ok = r < steps && dd < D;
+      const int64_t off = (row0 + t0 + r) * D + dd;
+      sdt[q] = ok ? dt[off] : 0.f;
+      sx[q] = ok ? x[off] : 0.f;
+      sdy[q] = ok ? dy[off] : 0.f;
+    }
+    for (int q = tid; q < M::kSel; q += kThreads) {
+      const bool ok = q / N < steps;
+      const int64_t off = (row0 + t0) * N + q;
+      sb[q] = ok ? bs[off] : 0.f;
+      sc[q] = ok ? cs[off] : 0.f;
+    }
+    __syncthreads();
+
+    // the chunk's states from its checkpoint, as the forward computes them.
+    // Rows past S hold zeros (dt = 0: a factor of 1 and no input), which
+    // leave h and g unchanged and add nothing to any gradient, so both
+    // loops run the whole chunk: a fixed trip count, unrolled, lets one
+    // step's exponentials and shuffles overlap the next steps' work.
+    float h[P];
+    {
+      const float* ck =
+          ckpt + ((static_cast<int64_t>(b) * nck + k) * D + d) * N + n0;
+#pragma unroll
+      for (int p = 0; p < P; ++p) h[p] = live ? ck[p] : 0.f;
+    }
+#pragma unroll 8
+    for (int r = 0; r < kChunk; ++r) {
+      store_states<P>(&hs[(r * kThreads + tid) * P], h);
+      const float dtv = sdt[r * kCh + c];
+      const float w = dtv * sx[r * kCh + c];
+      float bv[P];
+      load_states<P>(&sb[r * N + n0], bv);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float u = w * bv[p];
+        h[p] = h[p] * expf(dtv * av[p]) + u;
+      }
+    }
+
+    // the reverse recurrence over the chunk
+#pragma unroll 8
+    for (int r = kChunk - 1; r >= 0; --r) {
+      const float dtv = sdt[r * kCh + c], xv = sx[r * kCh + c];
+      const float dyv = sdy[r * kCh + c];
+      const float w = dtv * xv;
+      float bv[P], cv[P], hp[P], cb[P], cc[P];
+      load_states<P>(&sb[r * N + n0], bv);
+      load_states<P>(&sc[r * N + n0], cv);
+      load_states<P>(&hs[(r * kThreads + tid) * P], hp);
+      float sum_dx = 0.f, sum_ddt = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float e = expf(dtv * av[p]);
+        const float gt = g[p] + dyv * cv[p];           // g_t
+        const float q = e * hp[p];                     // e_t h_{t-1}
+        const float u = w * bv[p];
+        const float ht = hp[p] * e + u;                // h_t
+        cb[p] = gt * w;
+        cc[p] = dyv * ht;
+        sum_dx += gt * bv[p];
+        sum_ddt += gt * (av[p] * q + xv * bv[p]);
+        da_acc[p] += gt * q * dtv;
+        g[p] = gt * e;                                 // toward g_{t-1}
+      }
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off /= 2) {
+        sum_dx += __shfl_xor_sync(0xffffffffu, sum_dx, off);
+        sum_ddt += __shfl_xor_sync(0xffffffffu, sum_ddt, off);
+      }
+      if (live && lane == 0 && r < steps) {
+        const int64_t o = (row0 + t0 + r) * D + d;
+        dx[o] = dtv * sum_dx;
+        ddt[o] = sum_ddt;
+      }
+      // sums over the warp's channels (lanes kLanes apart hold one state)
+#pragma unroll
+      for (int off = kLanes; off < 32; off *= 2) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          cb[p] += __shfl_xor_sync(0xffffffffu, cb[p], off);
+          cc[p] += __shfl_xor_sync(0xffffffffu, cc[p], off);
+        }
+      }
+      if (tid % 32 < kLanes) {
+        store_states<P>(&red_b[(warp * kChunk + r) * N + n0], cb);
+        store_states<P>(&red_c[(warp * kChunk + r) * N + n0], cc);
+      }
+    }
+    __syncthreads();
+    // the block's dB and dC partials: its warps summed in order
+    for (int q = tid; q < steps * N; q += kThreads) {
+      float sum_b = 0.f, sum_c = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        sum_b += red_b[w * kChunk * N + q];
+        sum_c += red_c[w * kChunk * N + q];
+      }
+      const int64_t o =
+          ((static_cast<int64_t>(blockIdx.x) * B + b) * S + t0) * N + q;
+      dbs_part[o] = sum_b;
+      dcs_part[o] = sum_c;
+    }
+  }
+
+  if (live) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      da_part[state0 + p] = da_acc[p];
+      if (dh0) dh0[state0 + p] = g[p];
+    }
+  }
+}
+
+// out[i] = sum over k = 0 .. parts - 1 of part[k * len + i], in that
+// order, for each of three (part, out, parts, len); blockIdx.y picks one.
+struct Parts {
+  const float* part[3];
+  float* out[3];
+  int parts[3];
+  int64_t len[3];
+};
+
+__global__ void __launch_bounds__(256) sum_parts(Parts p) {
+  const int j = blockIdx.y;
+  const int64_t len = p.len[j];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < len; i += stride) {
+    float s = 0.f;
+    for (int k = 0; k < p.parts[j]; ++k) s += p.part[j][k * len + i];
+    p.out[j][i] = s;
+  }
+}
+
+template <int N>
+cudaError_t launch_bwd(const float* dt, const float* x, const float* bs,
+                       const float* cs, const float* a, const float* ckpt,
+                       const float* dy, const float* dhT, float* ddt,
+                       float* dx, float* dbs, float* dcs, float* da,
+                       float* dh0, float* work, int B, int S, int D,
+                       cudaStream_t stream) {
+  constexpr int kP = states_per_thread<N>();
+  constexpr int kCh = Tile<N, kP>::kCh;
+  constexpr size_t kSmem = BwdSmem<N, kP>::kBytes;
+  const int blocks = (D + kCh - 1) / kCh;
+  const int64_t sel = static_cast<int64_t>(B) * S * N;
+  float* const dbs_part = work;
+  float* const dcs_part = dbs_part + blocks * sel;
+  float* const da_part = dcs_part + blocks * sel;
+  cudaError_t err = cudaFuncSetAttribute(
+      &scan_bwd<N, kP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmem));
+  if (err != cudaSuccess) return err;
+  scan_bwd<N, kP><<<dim3(blocks, B), kThreads, kSmem, stream>>>(
+      dt, x, bs, cs, a, ckpt, dy, dhT, ddt, dx, dbs_part, dcs_part, da_part,
+      dh0, S, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  Parts p{{dbs_part, dcs_part, da_part}, {dbs, dcs, da}, {blocks, blocks, B},
+          {sel, sel, static_cast<int64_t>(D) * N}};
+  const int64_t most = sel > p.len[2] ? sel : p.len[2];
+  const int64_t want = (most + 255) / 256;
+  sum_parts<<<dim3(static_cast<unsigned>(want < 1024 ? want : 1024), 3), 256,
+              0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -318,16 +617,45 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+
 }  // namespace
 
+// Time steps a chunk and channels a block at state size N (0 for an N
+// the kernels do not take): the checkpoints hold ceil(S / chunk) states a
+// batch row, the backward's partials ceil(D / channels) blocks.
+extern "C" int selective_scan_chunk(int N) {
+  switch (N) {
+    case 1: return Tile<1, states_per_thread<1>()>::kChunk;
+    case 2: return Tile<2, states_per_thread<2>()>::kChunk;
+    case 4: return Tile<4, states_per_thread<4>()>::kChunk;
+    case 8: return Tile<8, states_per_thread<8>()>::kChunk;
+    case 16: return Tile<16, states_per_thread<16>()>::kChunk;
+    case 32: return Tile<32, states_per_thread<32>()>::kChunk;
+    default: return 0;
+  }
+}
+
+extern "C" int selective_scan_channels(int N) {
+  switch (N) {
+    case 1: return Tile<1, states_per_thread<1>()>::kCh;
+    case 2: return Tile<2, states_per_thread<2>()>::kCh;
+    case 4: return Tile<4, states_per_thread<4>()>::kCh;
+    case 8: return Tile<8, states_per_thread<8>()>::kCh;
+    case 16: return Tile<16, states_per_thread<16>()>::kCh;
+    case 32: return Tile<32, states_per_thread<32>()>::kCh;
+    default: return 0;
+  }
+}
+
 // dt, x (B, S, D); bs, cs (B, S, N); a (D, N); h0 (B, D, N); y (B, S, D);
-// hT (B, D, N); all f32 and contiguous. Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue, without launching, for a shape the
-// kernel does not take: N must divide 32).
+// hT (B, D, N); ckpt null or (B, ceil(S / selective_scan_chunk(N)), D, N);
+// all f32 and contiguous. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue, without launching, for a shape the kernel does
+// not take: N must divide 32).
 extern "C" int selective_scan(const void* dt, const void* x, const void* bs,
                               const void* cs, const void* a, const void* h0,
-                              void* y, void* hT, int B, int S, int D, int N,
-                              void* stream) {
+                              void* y, void* hT, void* ckpt, int B, int S,
+                              int D, int N, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || D <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   decltype(&launch<1>) fn = nullptr;
@@ -347,6 +675,39 @@ extern "C" int selective_scan(const void* dt, const void* x, const void* bs,
   const auto in = [](const void* p) { return static_cast<const float*>(p); };
   return static_cast<int>(fn(in(dt), in(x), in(bs), in(cs), in(a), in(h0),
                              static_cast<float*>(y), static_cast<float*>(hT),
-                             B, S, D, wide,
+                             static_cast<float*>(ckpt), B, S, D, wide,
+                             static_cast<cudaStream_t>(stream)));
+}
+
+// The backward. dt, x, dy (B, S, D); bs, cs (B, S, N); a (D, N); ckpt the
+// forward's checkpoints; dhT (B, D, N) or null (a zero gradient) -> ddt, dx
+// (B, S, D); dbs, dcs (B, S, N); da (D, N); dh0 (B, D, N) unless null.
+// work: 2 ceil(D / selective_scan_channels(N)) B S N + B D N floats of
+// scratch for the partial sums. All f32 and contiguous. Two launches, the
+// backward and the sum of its partials; returns cudaGetLastError().
+extern "C" int selective_scan_bwd(const void* dt, const void* x,
+                                  const void* bs, const void* cs,
+                                  const void* a, const void* ckpt,
+                                  const void* dy, const void* dhT, void* ddt,
+                                  void* dx, void* dbs, void* dcs, void* da,
+                                  void* dh0, void* work, int B, int S, int D,
+                                  int N, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || D <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  decltype(&launch_bwd<1>) fn = nullptr;
+  switch (N) {
+    case 1: fn = launch_bwd<1>; break;
+    case 2: fn = launch_bwd<2>; break;
+    case 4: fn = launch_bwd<4>; break;
+    case 8: fn = launch_bwd<8>; break;
+    case 16: fn = launch_bwd<16>; break;
+    case 32: fn = launch_bwd<32>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto in = [](const void* p) { return static_cast<const float*>(p); };
+  const auto out = [](void* p) { return static_cast<float*>(p); };
+  return static_cast<int>(fn(in(dt), in(x), in(bs), in(cs), in(a), in(ckpt),
+                             in(dy), in(dhT), out(ddt), out(dx), out(dbs),
+                             out(dcs), out(da), out(dh0), out(work), B, S, D,
                              static_cast<cudaStream_t>(stream)));
 }

@@ -58,15 +58,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: vision patches are {_LATER}")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for layers the port's training cannot differentiate: a Mamba
-    layer's prefill runs the CUDA selective scan, which has no backward."""
-    if LayerKind.MAMBA in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: training through Mamba layers needs a backward "
-            "selective-scan kernel, ROADMAP §A11 (Mamba training)")
-
-
 def _pattern(cfg: ModelConfig) -> Tuple[Tuple[LayerKind, ...], int]:
     """(the layer kinds of one group, the number of stacked groups)."""
     pattern, _ = cfg.block_group()
@@ -248,7 +239,6 @@ def _train_stack(params: Params, cfg: ModelConfig, x, positions,
                  remat: bool):
     """The layer stack for training: no cache, each stacked leaf split
     once (``_unbind``), each group under ``checkpoint`` with ``remat``."""
-    check_trainable(cfg)
     pattern, n_groups = _pattern(cfg)
     groups = list(zip(*(_unbind(params["stack"][j], n_groups)
                         for j in range(len(pattern)))))

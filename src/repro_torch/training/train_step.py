@@ -14,7 +14,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.models import Model, transformer
+from repro_torch.models import Model
 from repro_torch.training import tree as tree_lib
 from repro_torch.training.optimizer import (
     AdamWConfig, AdamWState, adamw_init, adamw_update, global_norm,
@@ -36,9 +36,7 @@ def init_train_state(model: Model, seed: int, opt_cfg: AdamWConfig,
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     accum_steps: int = 1, remat: bool = True):
-    """batch leaves: (accum, per_step_batch, ...) when accum_steps > 1.
-    Raises at once for a model the port cannot train."""
-    transformer.check_trainable(model.cfg)
+    """batch leaves: (accum, per_step_batch, ...) when accum_steps > 1."""
 
     def value_and_grad(params, batch):
         # leaves that require grad, sharing the params' storage

@@ -8,6 +8,9 @@ from repro.core.compression import default_registry as jregistry
 from repro.core.compression.kivi import KIVICompression as JKIVI
 from repro_torch.core.compression import default_registry as tregistry
 from repro_torch.core.compression.kivi import KIVICompression as TKIVI
+from repro_torch.device import cap_test_threads
+
+cap_test_threads()
 
 
 def _kv(seed: int, layers: int = 2, tokens: int = 37, feat: int = 38):

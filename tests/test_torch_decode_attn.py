@@ -18,11 +18,14 @@ from repro.kernels.decode_attn import kernel as jkernel
 from repro.kernels.decode_attn import ops as jops
 from repro.kernels.decode_attn import ref as jref
 from repro.kernels.kivi import ref as jkivi
+from repro_torch.device import cap_test_threads
 from repro_torch.kernels.decode_attn import kernel as tkernel
 from repro_torch.kernels.decode_attn import ops as tops
 from repro_torch.kernels.decode_attn import ref as tref
 from repro_torch.kernels.kivi import ref as tkivi
 from test_torch_kernels_cuda import NAMES, TOL, lengths, packed_planes
+
+cap_test_threads()
 
 
 def run_both(q, packs, cur, bits, kg, vg):

@@ -22,11 +22,14 @@ from repro.kernels.fused_prefill import kernel as jkernel
 from repro.kernels.fused_prefill import ops as jops
 from repro.kernels.fused_prefill import ref as jref
 from repro.kernels.kivi import ref as jkivi
+from repro_torch.device import cap_test_threads
 from repro_torch.kernels.fused_prefill import kernel as tkernel
 from repro_torch.kernels.fused_prefill import ops as tops
 from repro_torch.kernels.fused_prefill import ref as tref
 from repro_torch.kernels.kivi import ref as tkivi
 from test_torch_kernels_cuda import NAMES, TOL, chunk, lengths, packed_planes
+
+cap_test_threads()
 
 
 def run_port(q, kc, vc, packs, cur, bits, kg, vg):

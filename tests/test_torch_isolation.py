@@ -5,6 +5,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+from repro_torch.device import cap_test_threads
+
+cap_test_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 

@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from repro_torch.core.estimator import load_fused_calibration
+from repro_torch.device import cap_test_threads
 from repro_torch.kernels.fused_prefill import ref as fused_ref
 from repro_torch.launch import kernel_bench
+
+cap_test_threads()
 
 ATTN_TOL = dict(rtol=1e-4, atol=2e-4)   # the port's attention tolerance
 

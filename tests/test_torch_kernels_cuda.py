@@ -1,5 +1,5 @@
-"""The port's KIVI quantize, attention and selective-scan kernels against
-their plain versions on the card.
+"""The port's KIVI quantize, attention and selective-scan kernels (the
+scan's backward among them) against their plain versions on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA card.
 This file imports no JAX, so on a machine with a card and without JAX it
@@ -13,24 +13,33 @@ share. The attention tolerance, rtol 1e-4 / atol 2e-4, is the reference's
 own kernel tolerance (``tests/test_kernels_fused_prefill.py``), and so is
 the scan's, rtol = atol = 1e-4 (``tests/test_kernels_mamba_scan.py``): the
 kernels sum in another order than the plain versions, in f32 throughout.
-KIVI quantize and dequantize are held bit for bit.
+KIVI quantize and dequantize are held bit for bit. The scan's backward
+holds each gradient within ``SCAN_BWD_TOL`` times its largest magnitude
+(the forward's tolerance, since it recomputes the forward's states with the
+kernel's expf and sums in another order), and two calls bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.device import cap_test_threads
 from repro_torch.kernels.decode_attn import kernel as decode_kernel
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.fused_prefill import kernel as fused_kernel
 from repro_torch.kernels.fused_prefill import ops as fused_ops
 from repro_torch.kernels.kivi import kernel as kivi_kernel
 from repro_torch.kernels.kivi import ref as tkivi
+from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan import ref as scan_ref
 from repro_torch.kernels.prefill_attn import kernel as prefill_kernel
 from repro_torch.kernels.prefill_attn import ops as prefill_ops
 
+cap_test_threads()
+
 TOL = dict(rtol=1e-4, atol=2e-4)
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
+SCAN_BWD_TOL = 1e-4
 NAMES = ("k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero")
 
 
@@ -457,3 +466,46 @@ def test_selective_scan_matches_plain():
                                    msg=lambda m: f"{what} y: {m}")
         torch.testing.assert_close(h_got.cpu(), h_want, **SCAN_TOL,
                                    msg=lambda m: f"{what} hT: {m}")
+
+
+@pytest.mark.cuda
+def test_selective_scan_backward_matches_plain():
+    """On the card: the gradients of ``ops.selective_scan`` under autograd
+    (the forward kernel with checkpoints, then the backward kernel) against
+    the plain backward, over every state size, lengths that no chunk
+    divides, ragged channel counts, with and without a gradient of hT; two
+    calls of the backward are bit-equal, and one backward call is one
+    count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    shapes = ((1, 1, 64, 16), (2, 77, 200, 16), (3, 130, 128, 8),
+              (1, 33, 50, 32), (2, 19, 130, 4), (1, 40, 129, 2),
+              (2, 9, 260, 1), (2, 577, 300, 16))
+    for shape in shapes:
+        args = [torch.from_numpy(a).cuda()
+                for a in falcon_scan_inputs(31, *shape)]
+        rng = np.random.RandomState(32)
+        b, s, d, n = shape
+        dy = torch.from_numpy(rng.randn(b, s, d).astype(np.float32)).cuda()
+        for dht in (None, torch.from_numpy(
+                rng.randn(b, d, n).astype(np.float32)).cuda()):
+            want = scan_ref.selective_scan_bwd_ref(*args, dy, dht)
+            runs = []
+            for _ in range(2):
+                leaves = [t.clone().requires_grad_() for t in args]
+                before = scan_kernel.LAUNCHES["selective_scan_bwd"]
+                y, h_t = scan_ops.selective_scan(*leaves)
+                loss = (y * dy).sum()
+                if dht is not None:
+                    loss = loss + (h_t * dht).sum()
+                runs.append(torch.autograd.grad(loss, leaves))
+                assert (scan_kernel.LAUNCHES["selective_scan_bwd"]
+                        - before) == 1
+            for name, got, again, w in zip(
+                    ("ddt", "dx", "dbs", "dcs", "da", "dh0"), *runs, want):
+                what = f"{shape} dhT {dht is not None} {name}"
+                assert torch.equal(got, again), what
+                tol = SCAN_BWD_TOL * float(w.abs().max())
+                torch.testing.assert_close(got, w, rtol=SCAN_BWD_TOL,
+                                           atol=tol,
+                                           msg=lambda m: f"{what}: {m}")

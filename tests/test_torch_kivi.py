@@ -15,9 +15,12 @@ import torch
 
 from repro.kernels.kivi import kernel as jkernel
 from repro.kernels.kivi import ops as jops
+from repro_torch.device import cap_test_threads
 from repro_torch.kernels.kivi import kernel as tkernel
 from repro_torch.kernels.kivi import ops as tops
 from repro_torch.kernels.kivi import ref as tref
+
+cap_test_threads()
 
 GS = 32
 

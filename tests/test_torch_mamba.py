@@ -29,6 +29,7 @@ from repro.serving.timemodel import A100, TimeModel
 from repro.serving.workload import Request, make_contexts, poisson_requests
 from repro_torch.configs import get_config as tget
 from repro_torch.core.compression import KIVICompression as TKIVI
+from repro_torch.device import cap_test_threads
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import mamba as tmamba
@@ -39,6 +40,8 @@ from repro_torch.serving.runner import ModelRunner as TRunner
 from repro_torch.serving.runner import kvdata_to_cache
 from repro_torch.serving.scheduler import ContinuousBatcher as TBatcher
 from test_torch_models import BF16_SLACK, bf16_gap
+
+cap_test_threads()
 
 ARCH = "falcon-mamba-7b"
 FULL_PARAMS = 7_006_326_784        # the reference's active_param_count
@@ -239,6 +242,21 @@ def test_serve_driver_falcon_mamba_on_cpu():
     assert rc == 0
     text = buf.getvalue()
     assert "serving from the seeded init" in text
+    assert "=== serving summary ===" in text and "hit_rate" in text
+
+
+def test_serve_driver_trains_falcon_mamba_on_cpu():
+    """The driver trains the smoke falcon-mamba first (2 steps here; 150,
+    the reference's default, on the card), then serves it."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tserve.main(["--arch", ARCH, "--device", "cpu", "--duration",
+                          "6", "--rate", "1", "--contexts-per-task", "1",
+                          "--policy", "kivi:0.16", "--lanes", "1",
+                          "--train-steps", "2"])
+    assert rc == 0
+    text = buf.getvalue()
+    assert "smoke model trained 2 steps" in text
     assert "=== serving summary ===" in text and "hit_rate" in text
 
 

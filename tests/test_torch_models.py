@@ -18,9 +18,12 @@ from repro.configs import get_config as jget
 from repro.models import attention as jattn
 from repro.models import build_model as jbuild
 from repro_torch.configs import get_config as tget
+from repro_torch.device import cap_test_threads
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model as tbuild
 from repro_torch.models.convert import params_from_numpy
+
+cap_test_threads()
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 DENSE = ["adaptcache-8b", "qwen3-1.7b", "stablelm-3b", "smollm-135m",

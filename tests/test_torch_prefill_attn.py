@@ -20,10 +20,13 @@ import torch
 from repro.kernels.prefill_attn import kernel as jkernel
 from repro.kernels.prefill_attn import ops as jops
 from repro.kernels.prefill_attn import ref as jref
+from repro_torch.device import cap_test_threads
 from repro_torch.kernels.prefill_attn import kernel as tkernel
 from repro_torch.kernels.prefill_attn import ops as tops
 from repro_torch.kernels.prefill_attn import ref as tref
 from test_torch_kernels_cuda import TOL, qkv
+
+cap_test_threads()
 
 
 DTYPES = {"f32": (torch.float32, jnp.float32),

@@ -25,6 +25,7 @@ from repro.serving.scheduler import ContinuousBatcher as JBatcher
 from repro.serving.timemodel import A100, TimeModel
 from repro.serving.workload import Request, make_contexts, poisson_requests
 from repro_torch.configs import get_config as tget
+from repro_torch.device import cap_test_threads
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model as tbuild
 from repro_torch.models.convert import params_from_numpy
@@ -33,6 +34,8 @@ from repro_torch.serving.engine import summarize as tsummarize
 from repro_torch.serving.runner import ModelRunner as TRunner
 from repro_torch.serving.runner import kvdata_to_cache
 from repro_torch.serving.scheduler import ContinuousBatcher as TBatcher
+
+cap_test_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)

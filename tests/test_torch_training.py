@@ -12,8 +12,13 @@ Tolerances:
     and an atol of 1e-4 times the leaf's largest reference value (f32);
     in bf16 the loss within twice the reference's own bf16-against-f32
     gap, the rule the bf16 logits tests follow;
-  * a 10-step f32 loss trajectory within 1e-3 relative per step (Adam's
-    m / (sqrt(v) + eps) amplifies last-bit differences where v ~ 0).
+  * a 10-step f32 loss trajectory (5 steps for falcon-mamba) within 1e-3
+    relative per step (Adam's m / (sqrt(v) + eps) amplifies last-bit
+    differences where v ~ 0), the first grad norm within 1e-4.
+
+falcon-mamba trains through the plain selective scan on the CPU, which
+autograd differentiates as ``jax.grad`` differentiates the reference's
+``lax.scan``.
 """
 import contextlib
 import dataclasses
@@ -37,6 +42,7 @@ from repro.training import train_step as jts
 from repro.training.data import Pipeline as JPipeline
 from repro.training.data import PipelineConfig as JPipelineConfig
 from repro_torch.configs import get_config as tget
+from repro_torch.device import cap_test_threads
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import build_model as tbuild
@@ -53,8 +59,10 @@ from repro_torch.training.train_step import (
     TrainState, compressed_psum, init_train_state, make_train_step,
 )
 
+cap_test_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["adaptcache-8b", "smollm-135m"]
+ARCHS = ["adaptcache-8b", "smollm-135m", "falcon-mamba-7b"]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 BF16_SLACK = 2.0
@@ -367,10 +375,11 @@ def test_bf16_loss_within_reference_gap(batch):
     assert port_gap <= BF16_SLACK * ref_gap, (port_gap, ref_gap)
 
 
-def test_loss_trajectory_matches(pairs):
-    """10 f32 steps of each package's train step from the same init and
-    batches (recall pipeline, the serve driver's WSD schedule)."""
-    cfg, jm, jp, tm, tp = pairs["adaptcache-8b"]
+def _trajectory_matches(pair, steps: int):
+    """``steps`` f32 steps of each package's train step from the same init
+    and batches (recall pipeline, the serve driver's WSD schedule, remat as
+    the train step defaults to)."""
+    cfg, jm, jp, tm, tp = pair
     jcfg = jopt.AdamWConfig(lr=jopt.wsd_schedule(3e-3, 15, 75, 50))
     tcfg = tserve.smoke_opt_config(150)
     jstate = jts.TrainState(jp, jopt.adamw_init(jcfg, jp))
@@ -379,7 +388,7 @@ def test_loss_trajectory_matches(pairs):
                         topt.adamw_init(tcfg, tp))
     tstep = make_train_step(tm, tcfg)
     pipe = JPipeline(JPipelineConfig(cfg.vocab_size, 96, 4, kind="recall"))
-    for i in range(10):
+    for i in range(steps):
         b = pipe.next_batch()
         jstate, jmet = jstep(jstate, {k: jnp.asarray(v)
                                       for k, v in b.items()})
@@ -389,6 +398,14 @@ def test_loss_trajectory_matches(pairs):
         if i == 0:
             assert float(tmet["grad_norm"]) == pytest.approx(
                 float(jmet["grad_norm"]), rel=1e-4)
+
+
+def test_loss_trajectory_matches(pairs):
+    _trajectory_matches(pairs["adaptcache-8b"], 10)
+
+
+def test_mamba_loss_trajectory_matches(pairs):
+    _trajectory_matches(pairs["falcon-mamba-7b"], 5)
 
 
 # ---------------------------------------------------------------------------
@@ -586,20 +603,44 @@ def test_compressed_psum_matches_reference(tmp_path):
 # refusals, devices and drivers
 # ---------------------------------------------------------------------------
 
-def test_training_mamba_raises():
-    """The port's Mamba prefill runs the CUDA scan, which has no backward:
-    every training entry refuses a Mamba config, on any device."""
+def test_training_mamba_entry_points():
+    """Every training entry takes a Mamba config on the CPU: the model's
+    forward and loss, the train step (whose first step changes every
+    leaf) and the serve driver's ``train_smoke_model``."""
     cfg = tget("falcon-mamba-7b", smoke=True)
     model = tbuild(cfg)
-    params = model.init(0, "cpu")
-    b = _batch(Pipeline(PipelineConfig(cfg.vocab_size, 16, 1,
+    opt = topt.AdamWConfig()
+    state = init_train_state(model, 0, opt, "cpu")
+    b = _batch(Pipeline(PipelineConfig(cfg.vocab_size, 16, 2,
                                        kind="lm")).next_batch())
-    for call in (lambda: make_train_step(model, topt.AdamWConfig()),
-                 lambda: model.loss(params, b),
-                 lambda: model.forward(params, b),
-                 lambda: tserve.train_smoke_model(cfg, 1, device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP §A11"):
-            call()
+    assert model.forward(state.params, b).shape == (2, 16, cfg.vocab_size)
+    assert torch.isfinite(model.loss(state.params, b))
+    before = [t.clone() for t in tree_lib.leaves(state.params)]
+    state, m = make_train_step(model, opt)(state, b)
+    assert all(torch.isfinite(v) for v in m.values())
+    assert all(not torch.equal(x, y) for x, y in
+               zip(before, tree_lib.leaves(state.params)))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        m2, params = tserve.train_smoke_model(cfg, 1, seq=64, batch=2,
+                                              device="cpu")
+    assert "smoke model trained 1 steps" in buf.getvalue()
+    assert m2.param_count(params) == model.param_count(state.params)
+
+
+def test_train_driver_trains_mamba(tmp_path):
+    """The train driver takes falcon-mamba's smoke config on the CPU and
+    checkpoints it."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = ttrain.train(["--arch", "falcon-mamba-7b", "--smoke",
+                              "--steps", "2", "--ckpt-every", "2",
+                              "--batch", "2", "--seq", "64", "--ckpt-dir",
+                              str(tmp_path), "--device", "cpu"])
+    assert "step     0 loss" in buf.getvalue()
+    assert int(state.opt.step) == 2
+    assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_2"]
+    assert all(torch.isfinite(t).all() for t in tree_lib.leaves(state))
 
 
 def test_entry_points_default_to_cuda(tmp_path, smollm):
