@@ -33,19 +33,25 @@ stops the run with a non-zero exit when it fails:
              query rows; groups of 2 and of 1, rings of 2 and 1 stages),
              one launch a call, and of fused_prefill's CUDA-core kernel
              ``fused_split`` at hd 8 and at a K group of 12;
-             flash_attention (S 4096, 32 heads over 8 KV heads) for f32
-             inputs (the CUDA-core kernel) and bf16 inputs (the tensor-core
-             kernel, ``flash_fwd_mma``) within the same tolerance. Each is
+             flash_attention (S 4096, 32 heads over 8 KV heads) through
+             each of its three kernels, each launch counted: f32 inputs
+             (the tensor-core kernel ``flash_fwd_mma_f32``), bf16 inputs
+             (``flash_fwd_mma``) and a misaligned f32 copy (the CUDA-core
+             ``flash_fwd``), within the same tolerance, and f32 at S 1000
+             with hd 64 and 16 (the tensor cores) and hd 8 (the CUDA
+             cores), q scaled by 1 and 8. Each is
              timed with CUDA events (warm-up, a synchronize on every
              repetition) beside its plain version, its bound and, for
              flash_attention, PyTorch's ``scaled_dot_product_attention`` in
              the same type (f32 with TF32 off, and bf16); the attention
              kernels and their plain versions also as device time
              (CUDA-graph replays, without the host's share). The bf16
-             flash row's bound is at the bf16 tensor-core rate, with the
-             floor of the kernel's two-part P (1.5 times the products)
-             beside it; so is fused_prefill's, with the floor of its three
-             products of two-part operands (3 times the products). At 4
+             flash row's bound is at the bf16 tensor-core rate, the f32
+             rows' at the TF32 rate, each with the floor of its
+             tensor-core form beside it at the bf16 rate (the two-part P,
+             1.5 times the products; three-part scores and two-part P V,
+             4.5 times; three products of two-part operands throughout, 3
+             times, beside the f32 rows); so is fused_prefill's. At 4
              bits, ``torch.profiler`` divides each call's time between the
              kernels it launches: decode_attn's one, fused_prefill's split
              pass and merge.
@@ -76,10 +82,12 @@ stops the run with a non-zero exit when it fails:
 4. fused   — the fused-compute path: the port's ``kernel_bench`` at full
              width measures the fused calibration on the card (the counters
              of decode_attn, fused_prefill and flash_attention, and the
-             counts of flash_attention's and fused_prefill's tensor-core
-             launches, are zeroed just before and must each be above 0 just
-             after; every decode_attn call must have been one launch, and
-             every fused_prefill call, all at hd 128, must have taken the
+             counts of flash_attention's three kernels and fused_prefill's
+             tensor-core launches, are zeroed just before and must each be
+             above 0 just after: kernel_bench times f32 attention through
+             a misaligned copy too, which the CUDA-core kernel takes; every
+             decode_attn call must have been one launch, and every
+             fused_prefill call, all at hd 128, must have taken the
              tensor-core kernel); phase 3's
              workload is served again on the same runner with
              ``fused_compute=True`` and the measured residual fraction. The
@@ -138,8 +146,11 @@ stops the run with a non-zero exit when it fails:
              step and read just after: 128 forward launches (each layer
              twice under remat) and 64 backward calls.
 
-The line before the last is the ``kernels`` JSON line (its
-``selective_scan_bwd`` launches are phase 7's counted step), and the two
+The line before the last is the ``kernels`` JSON line (eleven entries,
+each with its own kernel's launches: phase 3's for KIVI, phase 4's for the
+attention kernels, flash_attention's f32 tensor-core, bf16 tensor-core
+and CUDA-core kernels as three entries, phase 5's for the scan, phase 7's
+counted step for ``selective_scan_bwd``), and the two
 before it phase 6's ``training`` and phase 7's ``mamba_training``
 summaries; the last line is
 ``{"ok": true, "device": {...}}``. Measurements also go to
@@ -600,8 +611,45 @@ def phase_decode_layouts(ops, ref, kernel):
     return worst
 
 
-def phase_flash_attention(ops, ref):
+# flash attention's kernels at FLASH: (row name, input type, misaligned
+# copy, the LAUNCHES key of the kernel the C entry must pick)
+FLASH_FORMS = (("f32", torch.float32, False, "flash_attention_mma_f32"),
+               ("bf16", torch.bfloat16, False, "flash_attention_mma"),
+               ("f32_cores", torch.float32, True, "flash_attention_cores"))
+# more layouts held to the plain version (not timed): ragged S at head dims
+# 64 and 16 on the tensor cores, hd 8 on the CUDA cores
+FLASH_CHECKS = ((dict(FLASH, s=1000, hd=64), "flash_attention_mma_f32"),
+                (dict(FLASH, s=1000, hd=16), "flash_attention_mma_f32"),
+                (dict(FLASH, s=1000, hd=8), "flash_attention_cores"))
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of CUDA tensor ``t`` whose data starts 4 bytes past
+    a 16-byte boundary: a layout that the attention kernels' tensor-core
+    forms refuse, so the CUDA-core form takes it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def flash_call(ops, kernel, key: str, qq, kk, vv):
+    """One counted call of the attention: fails unless the C entry launched
+    the kernel that ``key`` counts."""
+    before = kernel.LAUNCHES[key]
+    got = ops.causal_attention(qq, kk, vv)
+    if kernel.LAUNCHES[key] != before + 1:
+        fail(f"flash_attention {tuple(qq.shape)} {qq.dtype} did not launch "
+             f"the kernel {key} counts")
+    return got
+
+
+def phase_flash_attention(ops, ref, kernel):
+    """Each of flash attention's three kernels at FLASH against the plain
+    version, timed beside its bound, the plain version and SDPA in the same
+    type; then FLASH_CHECKS."""
     import torch.nn.functional as F
+
     fa = FLASH
     b, s, h, kv, hd = fa["b"], fa["s"], fa["h"], fa["kv"], fa["hd"]
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -609,11 +657,12 @@ def phase_flash_attention(ops, ref):
     k = torch.randn((b, s, kv, hd), generator=gen, device="cuda")
     v = torch.randn((b, s, kv, hd), generator=gen, device="cuda")
     rows, worst = [], 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
-        got = ops.causal_attention(qq, kk, vv)
+    for label, dtype, shift, key in FLASH_FORMS:
+        qq, kk, vv = ((misaligned(x) if shift else x.to(dtype))
+                      for x in (q, k, v))
+        got = flash_call(ops, kernel, key, qq, kk, vv)
         want = ref.causal_attention_gqa_ref(qq, kk, vv)
-        err = close_err(f"flash_attention {dtype}", got, want)
+        err = close_err(f"flash_attention {label}", got, want)
         worst = max(worst, err)
         es = qq.element_size()
         n_bytes = (b * s * h * hd * es + 2 * b * s * kv * hd * es
@@ -622,16 +671,22 @@ def phase_flash_attention(ops, ref):
         plain = lambda: ref.causal_attention_gqa_ref(qq, kk, vv)
         flops = 4 * b * h * hd * s * (s + 1) / 2
         bf16 = dtype == torch.bfloat16
-        row = {"dtype": str(dtype).replace("torch.", ""), "shape": dict(fa),
+        row = {"dtype": label, "kernel": key, "shape": dict(fa),
                "max_abs_err": err, "ms": device_ms(kern, calls=2),
                "plain_ms": device_ms(plain, calls=1),
                "call_ms": time_ms(kern, reps=10),
                "plain_call_ms": time_ms(plain, reps=3),
                **attention_bound(n_bytes, flops,
-                                 BF16_OPS if bf16 else TF32_OPS)}
-        if bf16:
-            # the tensor-core kernel multiplies V by P's two bf16 parts
-            row["split_floor_ms"] = 1.5 * flops / BF16_OPS * 1e3
+                                 BF16_OPS if bf16 else TF32_OPS),
+               # the tensor-core forms' floors at the bf16 rate: P's two
+               # parts multiply V (bf16, 1.5 times the products); six
+               # products of three-part q and K for the scores and three of
+               # two-part P and V (f32, 4.5 times), beside three products
+               # of two-part operands throughout (3 times)
+               "split_floor_ms": (1.5 if bf16 else 4.5) * flops / BF16_OPS
+               * 1e3}
+        if not bf16:
+            row["three_product_floor_ms"] = 3 * flops / BF16_OPS * 1e3
         # the yardstick only: PyTorch's own attention in the same type
         # (f32 without TF32, or bf16), which the port never calls
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
@@ -642,16 +697,33 @@ def phase_flash_attention(ops, ref):
         row["library_max_abs_diff"] = float(
             (lib().transpose(1, 2).float() - got).abs().max())
         rows.append(row)
-        split = (f", two-part P floor {row['split_floor_ms']:.4f}"
-                 if bf16 else "")
-        print(f"  flash_attention {row['dtype']} (B, S, H, Kv, hd)=({b}, "
+        print(f"  flash_attention {label} ({key}) (B, S, H, Kv, hd)=({b}, "
               f"{s}, {h}, {kv}, {hd}): within tolerance (max abs err "
               f"{err:.3g}); device "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, sdpa "
               f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-              f"{row['bound_by']}{split}, f32 cores "
+              f"{row['bound_by']}, tensor-core form's floor "
+              f"{row['split_floor_ms']:.4f}"
+              + (f", three products' floor "
+                 f"{row['three_product_floor_ms']:.4f}" if not bf16 else "")
+              + f", f32 cores "
               f"{row['f32_core_ms']:.4f}); per call {row['call_ms']:.4f} ms "
               f"(plain {row['plain_call_ms']:.4f})")
+    for case, key in FLASH_CHECKS:
+        b, s, h, kv, hd = (case[n] for n in ("b", "s", "h", "kv", "hd"))
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        for q_scale in (1.0, 8.0):
+            qq = torch.randn((b, s, h, hd), generator=gen,
+                             device="cuda") * q_scale
+            kk = torch.randn((b, s, kv, hd), generator=gen, device="cuda")
+            vv = torch.randn((b, s, kv, hd), generator=gen, device="cuda")
+            got = flash_call(ops, kernel, key, qq, kk, vv)
+            err = close_err(f"flash_attention {case} q x {q_scale}", got,
+                            ref.causal_attention_gqa_ref(qq, kk, vv))
+            worst = max(worst, err)
+            print(f"  flash_attention f32 (B, S, H, Kv, hd)=({b}, {s}, {h}, "
+                  f"{kv}, {hd}), q x {q_scale} ({key}): within tolerance "
+                  f"(max abs err {err:.3g})")
     return rows, worst
 
 
@@ -720,13 +792,14 @@ def phase_selective_scan(ops, ref):
     return rows, worst
 
 
-def scan_bwd_bytes(b: int, s: int, d: int, n: int, n_ckpt: int,
-                   with_dht: bool) -> int:
-    """Bytes the backward must move: dt, x, dy, B, C, a, the checkpoints (h0
-    among them) and dhT read once, the six gradients written once."""
-    reads = 3 * b * s * d + 2 * b * s * n + d * n + b * n_ckpt * d * n
+def scan_bwd_bytes(b: int, s: int, d: int, n: int) -> int:
+    """Bytes the vector-Jacobian product must move without dhT, whatever the
+    kernel's design: dt, x, dy, B, C, a and h0 read once, the six gradients
+    written once. The checkpoints that a kernel reads besides are its own
+    choice and not counted."""
+    reads = 3 * b * s * d + 2 * b * s * n + d * n + b * d * n
     writes = 2 * b * s * d + 2 * b * s * n + d * n + b * d * n
-    return 4 * (reads + writes + (b * d * n if with_dht else 0))
+    return 4 * (reads + writes)
 
 
 def phase_selective_scan_bwd(kernel, ref):
@@ -735,8 +808,7 @@ def phase_selective_scan_bwd(kernel, ref):
     within ``SCAN_BWD_TOL`` of its largest magnitude, two calls bit-equal.
     Timed with dhT absent (training drops hT) as the forward is, beside its
     bound: the bytes, or one exponential a (b, t, d, n) on the SFU, whichever
-    is larger (the kernel recomputes e_t, two exponentials: that floor is
-    printed beside)."""
+    is larger."""
     clock = sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = [], 0.0
@@ -762,7 +834,7 @@ def phase_selective_scan_bwd(kernel, ref):
                                      atol=SCAN_BWD_TOL * top))
                 errs[name] = max(errs.get(name, 0.0), err / top)
                 worst = max(worst, err)
-        n_bytes = scan_bwd_bytes(b, s, d, n, ckpt.shape[1], False)
+        n_bytes = scan_bwd_bytes(b, s, d, n)
         exps = b * s * d * n
         sfu_ms = exps / (SFU_PER_CLOCK * sms * clock) * 1e3
         t_bytes = n_bytes / HBM_BPS * 1e3
@@ -776,7 +848,7 @@ def phase_selective_scan_bwd(kernel, ref):
                "plain_call_ms": time_ms(plain, reps=2, warmup=1),
                "bound_ms": t, "bound_by": by, "bytes": n_bytes,
                "exps": exps, "sm_clock_hz": clock, "sfu_ms": sfu_ms,
-               "sfu_ms_recompute": 2 * sfu_ms, "rel_err": errs,
+               "rel_err": errs,
                "max_abs_err": worst, "library_ms": None}
         rows.append(row)
         print(f"  selective_scan_bwd (B, S, D, N)=({b}, {s}, {d}, {n}), h0 "
@@ -784,8 +856,8 @@ def phase_selective_scan_bwd(kernel, ref):
               f"{SCAN_BWD_TOL:g} of each gradient's largest magnitude (worst "
               f"{max(errs.values()):.2e}), two calls bit-equal; device "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
-              f"{t:.4f} by {by}, two-exponential SFU floor "
-              f"{2 * sfu_ms:.4f}); per call {row['call_ms']:.4f} ms (plain "
+              f"{t:.4f} by {by}, SFU floor "
+              f"{sfu_ms:.4f}); per call {row['call_ms']:.4f} ms (plain "
               f"{row['plain_call_ms']:.4f})")
         del args, ckpt, dy, dht
         torch.cuda.empty_cache()
@@ -1673,7 +1745,8 @@ def main() -> int:
     timed_rows = {
         "decode_attn": phase_decode_attn(decode_ops, decode_ref),
         "fused_prefill": phase_fused_prefill(fused_ops, fused_ref),
-        "flash_attention": phase_flash_attention(flash_ops, flash_ref),
+        "flash_attention": phase_flash_attention(flash_ops, flash_ref,
+                                                 flash_kernel),
         "selective_scan": phase_selective_scan(scan_ops, scan_ref),
         "selective_scan_bwd": phase_selective_scan_bwd(scan_kernel,
                                                        scan_ref),
@@ -1734,11 +1807,16 @@ def main() -> int:
             row = rows[0]
         else:
             row = next(r for r in rows if r["bits"] == MAIN_BITS)
-        cases.append((kname, kname, row, row.get("max_abs_err", err), kname))
-    # flash attention's bf16 row: the tensor-core kernel, its own count
-    bf16_row = timed_rows["flash_attention"][0][1]
-    cases.append(("flash_attention_bf16", "flash_attention", bf16_row,
-                  bf16_row["max_abs_err"], "flash_attention_mma"))
+        # each entry counts its own kernel's launches: flash_attention's
+        # f32 row is the f32 tensor-core kernel
+        count = row.get("kernel", kname)
+        cases.append((kname, kname, row, row.get("max_abs_err", err), count))
+    # flash attention's other two kernels
+    flash_rows = timed_rows["flash_attention"][0]
+    for ename, row in (("flash_attention_bf16", flash_rows[1]),
+                       ("flash_attention_cores", flash_rows[2])):
+        cases.append((ename, "flash_attention", row, row["max_abs_err"],
+                      row["kernel"]))
     counts = {**fused["launches"], **mamba["launches"],
               "selective_scan_bwd": mamba_training["full_width"]["launches"][
                   "selective_scan_bwd"]}

@@ -1,7 +1,7 @@
 // The Hopper helpers that the port's kernels share: the bf16 mma.sync
-// kernels (prefill_attn's flash_fwd_mma, fused_prefill's fused_mma) and
-// the cp.async rings (those two and decode_attn's decode_ring). Header
-// only; each kernel's .cu includes it.
+// kernels (prefill_attn's flash_fwd_mma and flash_fwd_mma_f32,
+// fused_prefill's fused_mma) and the cp.async rings (those kernels' and
+// decode_attn's decode_ring). Header only; each kernel's .cu includes it.
 //
 //  - cp.async: 16-byte copies from global to shared memory that bypass L1,
 //    zero-filled where the source is not valid, grouped and waited on, and
@@ -11,7 +11,8 @@
 //    transposed (B of a row-major V tile);
 //  - mma.sync m16n8k16 with bf16 inputs and f32 accumulators;
 //  - split2: two f32 values as a two-part bf16 pair (hi + lo), which keeps
-//    16 significant bits where one bf16 keeps 8.
+//    16 significant bits where one bf16 keeps 8; split3 as three parts,
+//    which keep all 24.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -93,6 +94,20 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = as_u32(h);
   lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// The same as three parts, hi + mid + lo, which keep all 24 significant
+// bits of an f32 value: mid rounds what hi left out, lo what both left.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;   // exact
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = as_u32(h);
+  mid = as_u32(m);
+  lo = as_u32(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
 }
 
 }  // namespace sm90

@@ -8,8 +8,9 @@
 // dt, x (B, S, D); bs, cs (B, S, N); a (D, N), negative; h0 (B, D, N)
 // -> y (B, S, D) and hT (B, D, N), all f32, contiguous. The operation
 // order is the plain version's (ref.py), expf included. Under training the
-// forward also writes the state entering each chunk, and the backward
-// (scan_bwd, further down) recomputes each chunk's states from it.
+// forward also writes the state entering each segment of kSeg steps, and
+// the backward (scan_bwd, further down) recomputes each segment's states
+// from it.
 //
 // What bounds it. Three floors, at B 1, D 8192, N 16 (S 640 / S 4096):
 // - bytes: dt, x, bs, cs, a, h0 read once, y and hT written once,
@@ -82,9 +83,14 @@ struct Tile {
   static constexpr int kLanes = N / P;                 // lanes a channel spans
   static constexpr int kCh = kThreads / kLanes;        // channels a block owns
   static constexpr int kChunk = kCh > 32 ? 1024 / kCh : 32;  // steps a chunk
+  // steps between the training forward's checkpoints: a segment of the
+  // backward, whose states and decay factors a thread keeps in registers
+  static constexpr int kSeg = 8;
   static constexpr int kOut = kSub > kLanes ? kSub / kLanes : 1;  // sums a lane keeps
   static constexpr int kCopies = kLanes > kSub ? kLanes / kSub : 1;  // lanes holding each
   static_assert(kChunk % kSub == 0, "a chunk holds whole groups of steps");
+  static_assert(kChunk % kSeg == 0 && kSeg % kSub == 0,
+                "a chunk holds whole segments, a segment whole groups");
   static_assert(kCh % 4 == 0 && kChunk * N % 4 == 0, "16-byte copies");
 };
 
@@ -130,15 +136,19 @@ struct Src {
   int d0, S, D;
 };
 
-// Starts the copies of the chunk at t0 into `s`, W floats a copy (W = 4
-// needs D and S N to be multiples of 4 and 16-byte aligned pointers).
-// Copies wholly past S or D read nothing and point at row 0.
-template <int N, int P, int W>
-__device__ __forceinline__ void issue(Stage<N, P>& s, const Src& g, int t0,
-                                      int tid) {
-  using T = Tile<N, P>;
-  constexpr int kRowPieces = T::kCh / W;
-  constexpr int kPieces = T::kChunk * kRowPieces;
+// Starts the copies of rows [t0, t0 + ROWS) into shared memory, W floats
+// a copy (W = 4 needs D and S N to be multiples of 4 and 16-byte aligned
+// pointers): of each (B, S, D) array src[k] the block's CH columns into
+// dst[k] (ROWS, CH), of bs and cs (B, S, N) the rows into b and c
+// (ROWS, N). Copies wholly past S or D read nothing, point at row 0 and
+// zero-fill.
+template <int N, int ROWS, int CH, int W, int K>
+__device__ __forceinline__ void issue_rows(float* const (&dst)[K],
+                                           const float* const (&src)[K],
+                                           float* b, float* c, const Src& g,
+                                           int t0, int tid) {
+  constexpr int kRowPieces = CH / W;
+  constexpr int kPieces = ROWS * kRowPieces;
 #pragma unroll
   for (int k = 0; k < (kPieces + kThreads - 1) / kThreads; ++k) {
     const int q = tid + k * kThreads;
@@ -148,12 +158,13 @@ __device__ __forceinline__ void issue(Stage<N, P>& s, const Src& g, int t0,
       const bool ok = t < g.S && dd < g.D;
       const int64_t off = ok ? (g.row0 + t) * g.D + dd : g.row0 * g.D;
       const int bytes = ok ? 4 * W : 0;
-      copy_async<W>(&s.dt[row * T::kCh + col], g.dt + off, bytes);
-      copy_async<W>(&s.x[row * T::kCh + col], g.x + off, bytes);
+#pragma unroll
+      for (int a = 0; a < K; ++a)
+        copy_async<W>(&dst[a][row * CH + col], src[a] + off, bytes);
     }
   }
-  constexpr int kBcPieces = T::kChunk * N / W;
-  const int n_valid = (g.S - t0 < T::kChunk ? g.S - t0 : T::kChunk) * N;
+  constexpr int kBcPieces = ROWS * N / W;
+  const int n_valid = (g.S - t0 < ROWS ? g.S - t0 : ROWS) * N;
 #pragma unroll
   for (int k = 0; k < (kBcPieces + kThreads - 1) / kThreads; ++k) {
     const int q = tid + k * kThreads;
@@ -161,10 +172,20 @@ __device__ __forceinline__ void issue(Stage<N, P>& s, const Src& g, int t0,
       const int left = n_valid - q * W;              // valid floats from here
       const int bytes = left <= 0 ? 0 : 4 * (left < W ? left : W);
       const int64_t off = bytes ? (g.row0 + t0) * N + q * W : g.row0 * N;
-      copy_async<W>(&s.b[q * W], g.bs + off, bytes);
-      copy_async<W>(&s.c[q * W], g.cs + off, bytes);
+      copy_async<W>(&b[q * W], g.bs + off, bytes);
+      copy_async<W>(&c[q * W], g.cs + off, bytes);
     }
   }
+}
+
+// The forward's chunk at t0 into `s`.
+template <int N, int P, int W>
+__device__ __forceinline__ void issue(Stage<N, P>& s, const Src& g, int t0,
+                                      int tid) {
+  using T = Tile<N, P>;
+  float* const dst[2] = {s.dt, s.x};
+  const float* const src[2] = {g.dt, g.x};
+  issue_rows<N, T::kChunk, T::kCh, W>(dst, src, s.b, s.c, g, t0, tid);
 }
 
 // P consecutive states' values from shared memory in one load.
@@ -186,16 +207,16 @@ __device__ __forceinline__ void load_states(const float* s, float (&v)[P]) {
   }
 }
 
-// Sums acc over a channel's lanes (offsets Off, Off / 2, ..., 1). While a
-// lane holds more than one partial sum, a level swaps half of them with
-// the partner lane: the lane whose Off bit is set keeps the upper half,
-// the other the lower, and each adds what it receives; after that, plain
-// butterfly levels. On return acc[0 .. kOut) are the full sums of steps
-// base + j.
-template <int Cnt, int Off, int K>
+// Sums acc over lanes Off, Off / 2, ..., Last apart (a channel's lanes
+// in the forward, Last = 1). While a lane holds more than one partial sum,
+// a level swaps half of them with the partner lane: the lane whose Off bit
+// is set keeps the upper half, the other the lower, and each adds what it
+// receives; after that, plain butterfly levels. On return acc[0 .. Cnt
+// >> levels) are the full sums of entries base + j (base counts from 0).
+template <int Cnt, int Off, int Last = 1, int K>
 __device__ __forceinline__ void reduce_scatter(float (&acc)[K], int lane,
                                                int& base) {
-  if constexpr (Off > 0) {
+  if constexpr (Off >= Last && Off > 0) {
     if constexpr (Cnt > 1) {
       constexpr int kHalf = Cnt / 2;
       const bool up = (lane & Off) != 0;
@@ -206,17 +227,18 @@ __device__ __forceinline__ void reduce_scatter(float (&acc)[K], int lane,
         acc[j] = keep + __shfl_xor_sync(0xffffffffu, send, Off);
       }
       base += up ? kHalf : 0;
-      reduce_scatter<kHalf, Off / 2>(acc, lane, base);
+      reduce_scatter<kHalf, Off / 2, Last>(acc, lane, base);
     } else {
       acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], Off);
-      reduce_scatter<1, Off / 2>(acc, lane, base);
+      reduce_scatter<1, Off / 2, Last>(acc, lane, base);
     }
   }
 }
 
-// With kCkpt, the state entering each chunk (h0 for the first) is also
-// written to ckpt (B, ceil(S / kChunk), D, N): what the backward
-// recomputes a chunk's states from. Without it, ckpt is not touched.
+// With kCkpt, the state entering each segment of kSeg steps (h0 for the
+// first) is also written to ckpt (B, ceil(S / kSeg), D, N): what the
+// backward recomputes a segment's states from. Without it, ckpt is not
+// touched.
 template <int N, int P, int W, bool kCkpt>
 __global__ void __launch_bounds__(kThreads)
     scan_fwd(const float* __restrict__ dt, const float* __restrict__ x,
@@ -261,21 +283,21 @@ __global__ void __launch_bounds__(kThreads)
     commit_copies();
     const Stage<N, P>& s = st[stage];
     stage = stage == kStages - 1 ? 0 : stage + 1;
-    if constexpr (kCkpt) {
-      if (live) {
-        const int64_t nck = (S + kChunk - 1) / kChunk;
-        float* const ck =
-            ckpt + ((b * nck + t0 / kChunk) * D + d) * static_cast<int64_t>(N);
-#pragma unroll
-        for (int p = 0; p < P; ++p) ck[n0 + p] = h[p];
-      }
-    }
 
     // kSub steps at a time: first every exp and input term of the group
     // (independent of h, so they overlap), then the FMA chain over h, then
     // the y sums. Rows past S hold zeros: their y is not stored.
     const int steps = S - t0 < kChunk ? S - t0 : kChunk;
     for (int r0 = 0; r0 < steps; r0 += kSub) {
+      if constexpr (kCkpt) {
+        if (live && r0 % T::kSeg == 0) {
+          const int64_t nck = (S + T::kSeg - 1) / T::kSeg;
+          float* const ck = ckpt + ((b * nck + (t0 + r0) / T::kSeg) * D + d) *
+                                       static_cast<int64_t>(N);
+#pragma unroll
+          for (int p = 0; p < P; ++p) ck[n0 + p] = h[p];
+        }
+      }
       float da[kSub][P], u[kSub][P], cv[kSub][P], acc[kSub];
 #pragma unroll
       for (int i = 0; i < kSub; ++i) {
@@ -342,64 +364,66 @@ cudaError_t launch(const float* dt, const float* x, const float* bs,
 // package has no backward kernel). ref.py's selective_scan_bwd_ref is its
 // plain version. With g_t the gradient of h_t and e_t = exp(dt_t a):
 //   g_{S-1} = dhT + dy_{S-1} C_{S-1},  g_t = g_{t+1} e_{t+1} + dy_t C_t
-//   dx_t = dt_t sum_n g_t B_t,  ddt_t = sum_n g_t (a e_t h_{t-1} + x_t B_t)
+//   dx_t = dt_t sum_n g_t B_t,  ddt_t = sum_n g_t a e_t h_{t-1} + x_t sum_n g_t B_t
 //   dB_t = sum_d g_t dt_t x_t,  dC_t = sum_d dy_t h_t
 //   da = sum_{b,t} g_t e_t h_{t-1} dt_t,  dh0 = g_0 e_0
 //
 // What bounds it. At B 2, S 512, D 8192, N 16 (the training shape): bytes,
-// dt, x, dy, B, C, a, the checkpoints (h0 among them) and dhT read and the
-// six gradients written, about 185 MB, 0.055 ms at 3.35 TB/s; the SFU, one
-// exponential a (b, t, d, n) at the least (0.032 ms), two in this design,
-// which recomputes e_t rather than keep it (0.064 ms at 1.98 GHz).
+// dt, x, dy, B, C, a and h0 read and the six gradients written, about
+// 171 MB, 0.051 ms at 3.35 TB/s (the checkpoints this design reads on top
+// are 67 MB more); the SFU, one
+// exponential a (b, t, d, n), 0.032 ms at 1.98 GHz; and instruction issue,
+// which is what it meets: the accurate expf, the reverse recurrence and
+// the sums over channels take over a hundred instructions a thread and
+// step.
 //
-// The design, a first version that is right, not yet fast (about ten
-// times its bound at the training shape; PERF.md):
+// The design (PERF.md has the forms measured against each other):
 // - one block per (batch b, kCh channels), the forward's thread layout: a
-//   thread owns P states of one channel, a channel's N states on N / P lanes.
-// - it walks the chunks last to first. A chunk's dt, x, dy, B and C are
-//   staged in shared memory (zero past S and D); its states are recomputed
-//   from the chunk's checkpoint with the forward's arithmetic, each thread
-//   keeping its h_{t-1} of every step in shared memory; then the reverse
-//   recurrence runs over them, g and the da partials in registers.
-// - dx_t and ddt_t are sums over a channel's lanes: shuffles, as the
-//   forward's y. dB_t and dC_t are sums over every channel: shuffles over a
-//   warp's channels, then the block's warps in order through shared memory,
-//   written as one partial a block; da sums over B, one partial a batch.
-//   A second launch (sum_parts) adds the partials in a fixed order. No
-//   float atomics: two calls give bit-equal gradients.
+//   thread owns P states of one channel, a channel's N states on N / P
+//   lanes. Registers are capped so that four blocks share an SM: at the
+//   training shape the 512 blocks then run in one wave.
+// - it walks segments of kSeg = 8 steps last to first, the training
+//   forward's checkpoint interval (67 MB of checkpoints a layer at the
+//   training shape). A segment's
+//   dt, x, dy, B and C come through a ring of kStages shared stages filled
+//   by cp.async, two segments ahead (zeros past S and D); the next
+//   segment's checkpoint is loaded while this one is computed.
+// - a segment's states h_{t-1} and decay factors e_t are recomputed from
+//   its checkpoint with the forward's arithmetic into registers (2 kSeg P
+//   a thread, the loops unrolled), then the reverse recurrence runs over
+//   them, g and the da partials in registers; h_t is the next step's
+//   h_{t-1}. Keeping e_t spends each exponential once; at 16-step
+//   segments only the states fit, and recomputing e_t was slower.
+// - dx_t and ddt_t are sums over a channel's lanes, taken kSub steps at a
+//   time by reduce-scatter, as the forward sums y. dB_t and dC_t (2 P
+//   values a thread and step) are sums over every channel: a reduce-scatter
+//   over the warp's channels (2 P - 1 shuffles, against 2 P a level for a
+//   butterfly) leaves one value a lane, the block's warps are then added in
+//   order through shared memory and written as one partial a block; da
+//   sums over B, one partial a batch row. A second launch (sum_parts) adds
+//   the partials in a fixed order. No float atomics: two calls give
+//   bit-equal gradients.
 // - the decay factor is expf, as in the forward.
 
 constexpr int kWarps = kThreads / 32;
+constexpr int kBwdBlocksPerSm = 4;   // the register cap of scan_bwd
 
 template <int N, int P>
-struct BwdSmem {
+struct BwdStage {
   using T = Tile<N, P>;
-  static constexpr int kStates = T::kChunk * kThreads * P;  // h_{t-1}
-  static constexpr int kRows = T::kChunk * T::kCh;          // dt, x, dy
-  static constexpr int kSel = T::kChunk * N;                // B, C
-  static constexpr int kRed = kWarps * T::kChunk * N;       // dB, dC sums
-  static constexpr int kFloats = kStates + 3 * kRows + 2 * kSel + 2 * kRed;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  float dt[T::kSeg * T::kCh];
+  float x[T::kSeg * T::kCh];
+  float dy[T::kSeg * T::kCh];
+  float b[T::kSeg * N];
+  float c[T::kSeg * N];
 };
 
-template <int P>
-__device__ __forceinline__ void store_states(float* s, const float (&v)[P]) {
-  if constexpr (P == 4) {
-    *reinterpret_cast<float4*>(s) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (P == 2) {
-    *reinterpret_cast<float2*>(s) = make_float2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int p = 0; p < P; ++p) s[p] = v[p];
-  }
-}
-
 // dt, x, dy (B, S, D); bs, cs (B, S, N); a (D, N); ckpt (B, ceil(S /
-// kChunk), D, N); dhT (B, D, N) or null -> ddt, dx (B, S, D); the partials
+// kSeg), D, N); dhT (B, D, N) or null -> ddt, dx (B, S, D); the partials
 // dbs_part, dcs_part (gridDim.x, B, S, N) and da_part (B, D, N); dh0
 // (B, D, N) unless null.
-template <int N, int P>
-__global__ void __launch_bounds__(kThreads)
+template <int N, int P, int W>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
     scan_bwd(const float* __restrict__ dt, const float* __restrict__ x,
              const float* __restrict__ bs, const float* __restrict__ cs,
              const float* __restrict__ a, const float* __restrict__ ckpt,
@@ -409,19 +433,20 @@ __global__ void __launch_bounds__(kThreads)
              float* __restrict__ da_part, float* __restrict__ dh0, int S,
              int D) {
   using T = Tile<N, P>;
-  using M = BwdSmem<N, P>;
-  constexpr int kLanes = T::kLanes, kCh = T::kCh, kChunk = T::kChunk;
-  extern __shared__ __align__(16) float smem[];
-  float* const hs = smem;                    // [kChunk][kThreads * P]
-  float* const sdt = hs + M::kStates;        // [kChunk][kCh]
-  float* const sx = sdt + M::kRows;
-  float* const sdy = sx + M::kRows;
-  float* const sb = sdy + M::kRows;          // [kChunk][N]
-  float* const sc = sb + M::kSel;
-  float* const red_b = sc + M::kSel;         // [kWarps][kChunk][N]
-  float* const red_c = red_b + M::kRed;
+  constexpr int kLanes = T::kLanes, kCh = T::kCh, kSeg = T::kSeg;
+  // the sums over a warp's channels: lanes kLanes, 2 kLanes, ... 16 apart;
+  // a reduce-scatter of the 2 P values leaves kOutC on each lane, on
+  // kCopiesC lanes each
+  constexpr int kChanLanes = 32 / kLanes;
+  constexpr int kOutC = 2 * P > kChanLanes ? 2 * P / kChanLanes : 1;
+  constexpr int kCopiesC = kChanLanes > 2 * P ? kChanLanes / (2 * P) : 1;
+  // the sums over a channel's lanes, kSub steps at a time: 2 kSub values
+  constexpr int kOutX = 2 * kSub > kLanes ? 2 * kSub / kLanes : 1;
+  static_assert(2 * kSub >= kLanes, "each lane keeps a sum");
+  __shared__ __align__(16) BwdStage<N, P> st[kStages];
+  __shared__ __align__(16) float red[kWarps][kSeg][2 * N];   // dB | dC
 
-  const int tid = threadIdx.x, warp = tid / 32;
+  const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
   const int b = blockIdx.y, B = gridDim.y;
   const int d0 = blockIdx.x * kCh;
   const int c = tid / kLanes, lane = tid % kLanes, n0 = lane * P;
@@ -429,124 +454,142 @@ __global__ void __launch_bounds__(kThreads)
   const bool live = d < D;
   const int64_t row0 = static_cast<int64_t>(b) * S;      // (b, t = 0)
   const int64_t state0 = (static_cast<int64_t>(b) * D + d) * N + n0;
-  const int nck = (S + kChunk - 1) / kChunk;
+  const int nseg = (S + kSeg - 1) / kSeg;
+  auto ckpt_of = [&](int k, float (&h)[P]) {
+    const float* ck = ckpt + ((static_cast<int64_t>(b) * nseg + k) * D + d) *
+                                 N + n0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) h[p] = live ? ck[p] : 0.f;
+  };
 
-  float g[P], av[P], da_acc[P];
+  const Src src{dt, x, bs, cs, row0, d0, S, D};
+  auto issue_seg = [&](BwdStage<N, P>& sg, int k) {
+    float* const dst[3] = {sg.dt, sg.x, sg.dy};
+    const float* const from[3] = {dt, x, dy};
+    issue_rows<N, kSeg, kCh, W>(dst, from, sg.b, sg.c, src, k * kSeg, tid);
+  };
+  issue_seg(st[0], nseg - 1);
+  commit_copies();
+  if (nseg > 1) issue_seg(st[1], nseg - 2);
+  commit_copies();
+
+  float g[P], av[P], da_acc[P], h_next[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     g[p] = live && dhT ? dhT[state0 + p] : 0.f;
     av[p] = live ? a[static_cast<int64_t>(d) * N + n0 + p] : 0.f;
     da_acc[p] = 0.f;
   }
+  ckpt_of(nseg - 1, h_next);
 
-  for (int k = nck - 1; k >= 0; --k) {
-    const int t0 = k * kChunk;
-    const int steps = S - t0 < kChunk ? S - t0 : kChunk;
-    __syncthreads();                 // the last chunk's shared reads are done
-    for (int q = tid; q < M::kRows; q += kThreads) {
-      const int r = q / kCh, dd = d0 + q % kCh;
-      const bool ok = r < steps && dd < D;
-      const int64_t off = (row0 + t0 + r) * D + dd;
-      sdt[q] = ok ? dt[off] : 0.f;
-      sx[q] = ok ? x[off] : 0.f;
-      sdy[q] = ok ? dy[off] : 0.f;
-    }
-    for (int q = tid; q < M::kSel; q += kThreads) {
-      const bool ok = q / N < steps;
-      const int64_t off = (row0 + t0) * N + q;
-      sb[q] = ok ? bs[off] : 0.f;
-      sc[q] = ok ? cs[off] : 0.f;
-    }
-    __syncthreads();
+  int stage = 0;
+  for (int k = nseg - 1; k >= 0; --k) {
+    const int t0 = k * kSeg;
+    const int steps = S - t0 < kSeg ? S - t0 : kSeg;
+    wait_copies<1>();                // this segment's copies have landed
+    __syncthreads();                 // everyone's; the last segment is done
+    if (k >= 2)                      // into the stage the last segment used
+      issue_seg(st[stage == 0 ? kStages - 1 : stage - 1], k - 2);
+    commit_copies();
+    const BwdStage<N, P>& sg = st[stage];
+    stage = stage == kStages - 1 ? 0 : stage + 1;
 
-    // the chunk's states from its checkpoint, as the forward computes them.
+    // the segment's states from its checkpoint, as the forward computes
+    // them: hs[r] is h_{t-1} of step r, es[r] its decay factor e_t, h_end
+    // the state after the last.
     // Rows past S hold zeros (dt = 0: a factor of 1 and no input), which
     // leave h and g unchanged and add nothing to any gradient, so both
-    // loops run the whole chunk: a fixed trip count, unrolled, lets one
-    // step's exponentials and shuffles overlap the next steps' work.
-    float h[P];
-    {
-      const float* ck =
-          ckpt + ((static_cast<int64_t>(b) * nck + k) * D + d) * N + n0;
+    // loops run the whole segment.
+    float hs[kSeg][P], es[kSeg][P], h_end[P];
 #pragma unroll
-      for (int p = 0; p < P; ++p) h[p] = live ? ck[p] : 0.f;
-    }
-#pragma unroll 8
-    for (int r = 0; r < kChunk; ++r) {
-      store_states<P>(&hs[(r * kThreads + tid) * P], h);
-      const float dtv = sdt[r * kCh + c];
-      const float w = dtv * sx[r * kCh + c];
+    for (int p = 0; p < P; ++p) h_end[p] = h_next[p];
+    if (k > 0) ckpt_of(k - 1, h_next);
+#pragma unroll
+    for (int r = 0; r < kSeg; ++r) {
+      const float dtv = sg.dt[r * kCh + c];
+      const float w = dtv * sg.x[r * kCh + c];
       float bv[P];
-      load_states<P>(&sb[r * N + n0], bv);
+      load_states<P>(&sg.b[r * N + n0], bv);
 #pragma unroll
       for (int p = 0; p < P; ++p) {
+        hs[r][p] = h_end[p];
+        es[r][p] = expf(dtv * av[p]);
         const float u = w * bv[p];
-        h[p] = h[p] * expf(dtv * av[p]) + u;
+        h_end[p] = h_end[p] * es[r][p] + u;
       }
     }
 
-    // the reverse recurrence over the chunk
-#pragma unroll 8
-    for (int r = kChunk - 1; r >= 0; --r) {
-      const float dtv = sdt[r * kCh + c], xv = sx[r * kCh + c];
-      const float dyv = sdy[r * kCh + c];
-      const float w = dtv * xv;
-      float bv[P], cv[P], hp[P], cb[P], cc[P];
-      load_states<P>(&sb[r * N + n0], bv);
-      load_states<P>(&sc[r * N + n0], cv);
-      load_states<P>(&hs[(r * kThreads + tid) * P], hp);
-      float sum_dx = 0.f, sum_ddt = 0.f;
+    // the reverse recurrence, kSub steps at a time
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float e = expf(dtv * av[p]);
-        const float gt = g[p] + dyv * cv[p];           // g_t
-        const float q = e * hp[p];                     // e_t h_{t-1}
-        const float u = w * bv[p];
-        const float ht = hp[p] * e + u;                // h_t
-        cb[p] = gt * w;
-        cc[p] = dyv * ht;
-        sum_dx += gt * bv[p];
-        sum_ddt += gt * (av[p] * q + xv * bv[p]);
-        da_acc[p] += gt * q * dtv;
-        g[p] = gt * e;                                 // toward g_{t-1}
-      }
+    for (int r0 = kSeg - kSub; r0 >= 0; r0 -= kSub) {
+      float sums[2 * kSub];          // dx / dt_t, then ddt, of each step
 #pragma unroll
-      for (int off = kLanes / 2; off > 0; off /= 2) {
-        sum_dx += __shfl_xor_sync(0xffffffffu, sum_dx, off);
-        sum_ddt += __shfl_xor_sync(0xffffffffu, sum_ddt, off);
-      }
-      if (live && lane == 0 && r < steps) {
-        const int64_t o = (row0 + t0 + r) * D + d;
-        dx[o] = dtv * sum_dx;
-        ddt[o] = sum_ddt;
-      }
-      // sums over the warp's channels (lanes kLanes apart hold one state)
-#pragma unroll
-      for (int off = kLanes; off < 32; off *= 2) {
+      for (int i = kSub - 1; i >= 0; --i) {
+        const int r = r0 + i;
+        const float dtv = sg.dt[r * kCh + c], xv = sg.x[r * kCh + c];
+        const float dyv = sg.dy[r * kCh + c];
+        const float w = dtv * xv;
+        float bv[P], cv[P], bc[2 * P];
+        load_states<P>(&sg.b[r * N + n0], bv);
+        load_states<P>(&sg.c[r * N + n0], cv);
+        float sum_gb = 0.f, sum_gaq = 0.f;
 #pragma unroll
         for (int p = 0; p < P; ++p) {
-          cb[p] += __shfl_xor_sync(0xffffffffu, cb[p], off);
-          cc[p] += __shfl_xor_sync(0xffffffffu, cc[p], off);
+          const float e = es[r][p];
+          const float gt = g[p] + dyv * cv[p];           // g_t
+          const float gq = gt * (e * hs[r][p]);          // g_t e_t h_{t-1}
+          const float ht = r + 1 < kSeg ? hs[r + 1][p] : h_end[p];
+          bc[p] = gt * w;                                // toward dB_t
+          bc[P + p] = dyv * ht;                          // toward dC_t
+          sum_gb += gt * bv[p];
+          sum_gaq += gq * av[p];
+          da_acc[p] += gq * dtv;
+          g[p] = gt * e;                                 // toward g_{t-1}
+        }
+        sums[i] = sum_gb;
+        sums[kSub + i] = sum_gaq + xv * sum_gb;
+        // dB_t and dC_t over the warp's channels
+        int base = 0;
+        reduce_scatter<2 * P, 16, kLanes>(bc, wl, base);
+        if ((wl / kLanes) % kCopiesC == 0) {
+#pragma unroll
+          for (int j = 0; j < kOutC; ++j) {
+            const int v = base + j;
+            red[warp][r][v < P ? n0 + v : N + n0 + v - P] = bc[j];
+          }
         }
       }
-      if (tid % 32 < kLanes) {
-        store_states<P>(&red_b[(warp * kChunk + r) * N + n0], cb);
-        store_states<P>(&red_c[(warp * kChunk + r) * N + n0], cc);
+      // dx and ddt over the channel's lanes
+      int base = 0;
+      reduce_scatter<2 * kSub, kLanes / 2>(sums, lane, base);
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < kOutX; ++j) {
+          const int v = base + j, i = v % kSub, r = r0 + i;
+          if (r < steps) {
+            const int64_t o = (row0 + t0 + r) * D + d;
+            const float dtv = sg.dt[r * kCh + c];
+            if (v < kSub)
+              dx[o] = dtv * sums[j];
+            else
+              ddt[o] = sums[j];
+          }
+        }
       }
     }
     __syncthreads();
-    // the block's dB and dC partials: its warps summed in order
-    for (int q = tid; q < steps * N; q += kThreads) {
-      float sum_b = 0.f, sum_c = 0.f;
+    // the block's dB and dC partials: its warps added in order
+    for (int q = tid; q < steps * 2 * N; q += kThreads) {
+      const int r = q / (2 * N), n = q % (2 * N);
+      float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        sum_b += red_b[w * kChunk * N + q];
-        sum_c += red_c[w * kChunk * N + q];
-      }
+      for (int w = 0; w < kWarps; ++w) sum += red[w][r][n];
       const int64_t o =
-          ((static_cast<int64_t>(blockIdx.x) * B + b) * S + t0) * N + q;
-      dbs_part[o] = sum_b;
-      dcs_part[o] = sum_c;
+          ((static_cast<int64_t>(blockIdx.x) * B + b) * S + t0 + r) * N;
+      if (n < N)
+        dbs_part[o + n] = sum;
+      else
+        dcs_part[o + n - N] = sum;
     }
   }
 
@@ -586,23 +629,19 @@ cudaError_t launch_bwd(const float* dt, const float* x, const float* bs,
                        const float* dy, const float* dhT, float* ddt,
                        float* dx, float* dbs, float* dcs, float* da,
                        float* dh0, float* work, int B, int S, int D,
-                       cudaStream_t stream) {
+                       bool wide, cudaStream_t stream) {
   constexpr int kP = states_per_thread<N>();
   constexpr int kCh = Tile<N, kP>::kCh;
-  constexpr size_t kSmem = BwdSmem<N, kP>::kBytes;
   const int blocks = (D + kCh - 1) / kCh;
   const int64_t sel = static_cast<int64_t>(B) * S * N;
   float* const dbs_part = work;
   float* const dcs_part = dbs_part + blocks * sel;
   float* const da_part = dcs_part + blocks * sel;
-  cudaError_t err = cudaFuncSetAttribute(
-      &scan_bwd<N, kP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
-  if (err != cudaSuccess) return err;
-  scan_bwd<N, kP><<<dim3(blocks, B), kThreads, kSmem, stream>>>(
+  const auto kernel = wide ? &scan_bwd<N, kP, 4> : &scan_bwd<N, kP, 1>;
+  kernel<<<dim3(blocks, B), kThreads, 0, stream>>>(
       dt, x, bs, cs, a, ckpt, dy, dhT, ddt, dx, dbs_part, dcs_part, da_part,
       dh0, S, D);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   Parts p{{dbs_part, dcs_part, da_part}, {dbs, dcs, da}, {blocks, blocks, B},
           {sel, sel, static_cast<int64_t>(D) * N}};
@@ -620,17 +659,18 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// Time steps a chunk and channels a block at state size N (0 for an N
-// the kernels do not take): the checkpoints hold ceil(S / chunk) states a
-// batch row, the backward's partials ceil(D / channels) blocks.
-extern "C" int selective_scan_chunk(int N) {
+// Time steps between the training forward's checkpoints and channels a
+// block at state size N (0 for an N the kernels do not take): the
+// checkpoints hold ceil(S / steps) states a batch row, the backward's
+// partials ceil(D / channels) blocks.
+extern "C" int selective_scan_checkpoint_steps(int N) {
   switch (N) {
-    case 1: return Tile<1, states_per_thread<1>()>::kChunk;
-    case 2: return Tile<2, states_per_thread<2>()>::kChunk;
-    case 4: return Tile<4, states_per_thread<4>()>::kChunk;
-    case 8: return Tile<8, states_per_thread<8>()>::kChunk;
-    case 16: return Tile<16, states_per_thread<16>()>::kChunk;
-    case 32: return Tile<32, states_per_thread<32>()>::kChunk;
+    case 1: return Tile<1, states_per_thread<1>()>::kSeg;
+    case 2: return Tile<2, states_per_thread<2>()>::kSeg;
+    case 4: return Tile<4, states_per_thread<4>()>::kSeg;
+    case 8: return Tile<8, states_per_thread<8>()>::kSeg;
+    case 16: return Tile<16, states_per_thread<16>()>::kSeg;
+    case 32: return Tile<32, states_per_thread<32>()>::kSeg;
     default: return 0;
   }
 }
@@ -648,8 +688,8 @@ extern "C" int selective_scan_channels(int N) {
 }
 
 // dt, x (B, S, D); bs, cs (B, S, N); a (D, N); h0 (B, D, N); y (B, S, D);
-// hT (B, D, N); ckpt null or (B, ceil(S / selective_scan_chunk(N)), D, N);
-// all f32 and contiguous. Returns cudaGetLastError() after the launch
+// hT (B, D, N); ckpt null or (B, ceil(S / selective_scan_checkpoint_steps(
+// N)), D, N); all f32 and contiguous. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue, without launching, for a shape the kernel does
 // not take: N must divide 32).
 extern "C" int selective_scan(const void* dt, const void* x, const void* bs,
@@ -704,10 +744,13 @@ extern "C" int selective_scan_bwd(const void* dt, const void* x,
     case 32: fn = launch_bwd<32>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool wide = D % 4 == 0 && static_cast<int64_t>(S) * N % 4 == 0 &&
+                    aligned16(dt) && aligned16(x) && aligned16(bs) &&
+                    aligned16(cs) && aligned16(dy);
   const auto in = [](const void* p) { return static_cast<const float*>(p); };
   const auto out = [](void* p) { return static_cast<float*>(p); };
   return static_cast<int>(fn(in(dt), in(x), in(bs), in(cs), in(a), in(ckpt),
                              in(dy), in(dhT), out(ddt), out(dx), out(dbs),
                              out(dcs), out(da), out(dh0), out(work), B, S, D,
-                             static_cast<cudaStream_t>(stream)));
+                             wide, static_cast<cudaStream_t>(stream)));
 }

@@ -34,7 +34,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.selective_scan.restype = i32
     lib.selective_scan_bwd.argtypes = [ptr] * 15 + [i32] * 4 + [ptr]
     lib.selective_scan_bwd.restype = i32
-    for entry in (lib.selective_scan_chunk, lib.selective_scan_channels):
+    for entry in (lib.selective_scan_checkpoint_steps,
+                  lib.selective_scan_channels):
         entry.argtypes = [i32]
         entry.restype = i32
 
@@ -66,9 +67,10 @@ def _check_inputs(dt, x, bs, cs, a, dims) -> None:
 
 
 def checkpoint_shape(b: int, s: int, d: int, n: int) -> Tuple[int, ...]:
-    """The forward's checkpoints: the state entering each chunk of the
-    kernel's time steps, (B, ceil(S / chunk), D, N)."""
-    return (b, math.ceil(s / LIBRARY.lib().selective_scan_chunk(n)), d, n)
+    """The forward's checkpoints: the state entering each segment of the
+    kernel's checkpoint interval, (B, ceil(S / interval), D, N)."""
+    steps = LIBRARY.lib().selective_scan_checkpoint_steps(n)
+    return (b, math.ceil(s / steps), d, n)
 
 
 def selective_scan(dt: torch.Tensor, x: torch.Tensor, bs: torch.Tensor,

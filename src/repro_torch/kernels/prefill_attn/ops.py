@@ -5,11 +5,11 @@ A tensor on the CPU goes to the plain version
 (``ref.causal_attention_gqa_ref``: each KV head repeated over its query
 heads, as the reference does); a CUDA tensor goes to the hand-written
 kernels (``kernel.py``), which read KV head ``h // g`` in place and build
-no repeated copy. On the card, inputs that are all bf16 stay bf16, and
-those whose head dim is a multiple of 16 (16, 32, 64, 128) reach the
-tensor-core kernel; f32 inputs, mixed types (widened to f32) and bf16 at
-another head dim reach the CUDA-core kernel. Anything else raises: nothing
-falls back from one path to another.
+no repeated copy. On the card, inputs that are all bf16 stay bf16 and
+any other mix is widened to f32; at a head dim that is a multiple of 16
+(16, 32, 64, 128), with 16-byte aligned tensors, either type reaches a
+tensor-core kernel, and every other layout the CUDA-core kernel. Anything
+else raises: nothing falls back from one path to another.
 """
 from __future__ import annotations
 

@@ -4,7 +4,10 @@
         [--device cuda|cpu] [--out PATH]
 
 The port of ``benchmarks/kernel_bench.py``: prints ``name,us_per_call,
-derived`` CSV rows for the KIVI quantize/dequantize, ``prefill_attn``,
+derived`` CSV rows for the KIVI quantize/dequantize, ``prefill_attn``
+(on the card also the ``_cores`` row: f32 attention on the CUDA cores,
+the price of a layout that the tensor-core kernel refuses, such as a view
+that is not 16-byte aligned),
 ``decode_attn`` and ``fused_prefill`` kernels, and writes the fused
 calibration JSON that ``serve --fused-compute --fused-calibration`` reads
 (``core.estimator.load_fused_calibration``):
@@ -149,14 +152,31 @@ def bench_kivi(rng, device, time_us, shapes, rows: List[str]) -> None:
             rows.append(f"kivi_dequant_{t}x{f}_{bits}b,{us:.1f},")
 
 
+def _unaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element past the
+    start of its buffer (4 bytes past a 16-byte boundary in f32)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def bench_prefill_attn(rng, device, time_us, shapes,
                        rows: List[str]) -> None:
+    """f32 and bf16 inputs at each shape; on the card also f32 through the
+    CUDA-core kernel, which takes every layout the tensor-core kernels
+    refuse (here a copy that is not 16-byte aligned): what attention costs
+    a caller whose tensors are views at such an offset."""
     for b, s, h, kv, hd in shapes:
         q = _randn(rng, (b, s, h, hd), device)
         k = _randn(rng, (b, s, kv, hd), device)
         v = _randn(rng, (b, s, kv, hd), device)
-        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-            qq, kk, vv = (a.to(dtype) for a in (q, k, v))
+        forms = [(torch.float32, "", False), (torch.bfloat16, "_bf16", False)]
+        if device.type == "cuda":
+            forms.append((torch.float32, "_cores", True))
+        for dtype, tag, shift in forms:
+            qq, kk, vv = ((_unaligned_copy(a) if shift else a.to(dtype))
+                          for a in (q, k, v))
             us = time_us(lambda: prefill_ops.causal_attention(qq, kk, vv))
             rows.append(f"prefill_attn_{b}x{s}x{h}x{hd}{tag},{us:.1f},")
 

@@ -402,33 +402,61 @@ def test_fused_prefill_matches_plain():
                     - before) == int(mma), what
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of CUDA tensor ``t`` whose data starts 4 bytes past
+    a 16-byte boundary: a layout that the attention kernels' tensor-core
+    forms refuse, so the CUDA-core form takes it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+
 @pytest.mark.cuda
 def test_flash_attention_matches_plain():
     """On the card: the CUDA kernels against the plain version, f32 and
-    bf16, GQA and ragged lengths: S at each edge of a 64-key tile (1, 63,
-    64, 65, 127), batch 2 without GQA, every head dim the tensor-core
-    kernel takes (16, 32, 64, 128), q scaled by 8 (a peaked softmax rounds
-    P hardest), and bf16 at hd 8, which stays on the CUDA-core kernel.
-    bf16 at hd 16-128 must take the tensor-core kernel, f32 never."""
+    bf16, GQA 4:1, 2:1 and 1:1 and ragged lengths: S at each edge of a
+    64-key tile (1, 63, 64, 65, 127) and a 1000, batch 2 without GQA,
+    every head dim the tensor-core kernels take (16, 32, 64, 128), q scaled
+    by 8 (a peaked softmax rounds P hardest), hd 8 and a misaligned copy,
+    which stay on the CUDA-core kernel. Each call's launch counter shows
+    the kernel: at hd 16-128 with aligned tensors ``flash_fwd_mma`` for
+    bf16 and ``flash_fwd_mma_f32`` for f32, ``flash_fwd`` otherwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     shapes = [(2, 96, 4, 2, 64), (1, 301, 8, 2, 128), (1, 64, 4, 4, 16),
-              (1, 200, 4, 1, 32), (2, 130, 4, 4, 64)]
+              (1, 200, 4, 1, 32), (2, 130, 4, 4, 64), (1, 1000, 8, 2, 64),
+              (1, 1000, 4, 4, 16), (1, 1000, 8, 2, 32), (1, 1000, 8, 8, 128)]
     shapes += [(1, s, 4, 2, 128) for s in (1, 63, 64, 65, 127)]
-    cases = [(shape, 1.0) for shape in shapes]
-    cases += [((1, 257, 4, 2, 128), 8.0), ((1, 77, 4, 2, 8), 1.0)]
-    for shape, q_scale in cases:
+    cases = [(shape, 1.0, False) for shape in shapes]
+    cases += [((1, 257, 4, 2, 128), 8.0, False), ((1, 257, 16, 4, 128), 8.0,
+                                                  False),
+              ((1, 77, 4, 2, 8), 1.0, False), ((1, 257, 16, 4, 128), 1.0, True),
+              ((1, 100, 4, 4, 64), 1.0, True)]
+    for shape, q_scale, shift in cases:
         for tdt in (torch.float32, torch.bfloat16):
             q, k, v = qkv(24, *shape)
             q, k, v = (torch.from_numpy(a).to(tdt) for a in (q * q_scale,
                                                              k, v))
             want = prefill_ops.causal_attention(q, k, v)
-            before = prefill_kernel.LAUNCHES["flash_attention_mma"]
-            got = prefill_ops.causal_attention(q.cuda(), k.cuda(), v.cuda())
-            torch.testing.assert_close(got.cpu(), want, **TOL)
-            mma = tdt == torch.bfloat16 and shape[-1] % 16 == 0
-            assert (prefill_kernel.LAUNCHES["flash_attention_mma"]
-                    - before) == int(mma), (shape, tdt)
+            on_card = [misaligned(t.cuda()) if shift else t.cuda()
+                       for t in (q, k, v)]
+            before = dict(prefill_kernel.LAUNCHES)
+            got = prefill_ops.causal_attention(*on_card)
+            what = (shape, q_scale, shift, tdt)
+            torch.testing.assert_close(got.cpu(), want, **TOL,
+                                       msg=lambda m: f"{what}: {m}")
+            ran = "flash_attention_cores"
+            if shape[-1] % 16 == 0 and not shift:
+                ran = ("flash_attention_mma" if tdt == torch.bfloat16
+                       else "flash_attention_mma_f32")
+            moved = {key: n - before[key]
+                     for key, n in prefill_kernel.LAUNCHES.items()}
+            assert moved == {"flash_attention": 1, ran: 1,
+                             **{key: 0 for key in moved
+                                if key not in ("flash_attention", ran)}}, \
+                what
 
 
 def falcon_scan_inputs(seed, b, s, d, n, h0_scale=1.0):
@@ -472,20 +500,28 @@ def test_selective_scan_matches_plain():
 def test_selective_scan_backward_matches_plain():
     """On the card: the gradients of ``ops.selective_scan`` under autograd
     (the forward kernel with checkpoints, then the backward kernel) against
-    the plain backward, over every state size, lengths that no chunk
-    divides, ragged channel counts, with and without a gradient of hT; two
-    calls of the backward are bit-equal, and one backward call is one
+    the plain backward, over every state size, lengths that no checkpoint
+    interval divides, lengths under one interval (1 and 5 at N 16), B 3,
+    ragged channel counts, with and without a gradient of hT; the
+    checkpoints have the shape ``checkpoint_shape`` reads from the library,
+    two calls of the backward are bit-equal, and one backward call is one
     count."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     shapes = ((1, 1, 64, 16), (2, 77, 200, 16), (3, 130, 128, 8),
               (1, 33, 50, 32), (2, 19, 130, 4), (1, 40, 129, 2),
-              (2, 9, 260, 1), (2, 577, 300, 16))
+              (2, 9, 260, 1), (2, 577, 300, 16), (3, 9, 64, 16),
+              (3, 1, 96, 16), (2, 5, 64, 16), (1, 47, 160, 16),
+              (2, 31, 64, 32))
     for shape in shapes:
         args = [torch.from_numpy(a).cuda()
                 for a in falcon_scan_inputs(31, *shape)]
         rng = np.random.RandomState(32)
         b, s, d, n = shape
+        _, _, ckpt = scan_kernel.selective_scan(*args, checkpoints=True)
+        steps = scan_kernel.LIBRARY.lib().selective_scan_checkpoint_steps(n)
+        assert ckpt.shape == scan_kernel.checkpoint_shape(b, s, d, n) == \
+            (b, -(-s // steps), d, n), shape
         dy = torch.from_numpy(rng.randn(b, s, d).astype(np.float32)).cuda()
         for dht in (None, torch.from_numpy(
                 rng.randn(b, d, n).astype(np.float32)).cuda()):
