@@ -145,14 +145,42 @@ stops the run with a non-zero exit when it fails:
              move): the scan's counters are zeroed just before the second
              step and read just after: 128 forward launches (each layer
              twice under remat) and 64 backward calls.
+8. moe     — after phase 7 frees its model: full-width olmoe-1b-7b (16
+             layers, d_model 2048, 64 experts top-8 of width 1024, GQA 16
+             heads, bf16, 6.92 B seeded params) serves phase 3's workload
+             through ``build_engine`` with the fixed KIVI policy. The KIVI
+             counters are zeroed just before ``engine.process`` and read
+             just after: each form the entry's layout needs must have
+             launched (``check_kivi_launches``: K-style grouping for ``k``,
+             V-style for every other array; here all four), the summary
+             must show hits, and one request (a miss) is profiled as in
+             phase 3, with the device time and the host time of the MoE
+             dispatch (the ``moe_dispatch`` range of ``models/moe.py``:
+             routing, the sort and the wait for each expert's row count).
+             A real prefill entry's compress and decompress through the
+             kernel are bit-equal to the plain version. The decode step
+             against the prefill is printed in bf16 and held in f32 within
+             1e-4 relative: the f32 model is the same seed's init in f32
+             (the bf16 weights before their rounding) at full depth, built
+             after the bf16 model is freed; the smallest gap between a
+             router's k-th and (k+1)-th probability is printed beside it.
+9. mla     — the same for full-width deepseek-v2-lite-16b (27 layers, one
+             dense prefix layer, MLA latent rank 512 and rope dim 64, 64
+             routed + 2 shared experts top-6, 15.71 B params; its f32 model,
+             62.8 GB, fits only once the bf16 one is freed). Its entry is
+             the latent (``ckv``, ``krope``), which KIVI groups along
+             features only: the ``_cols`` kernels (the ``_v`` counters)
+             must launch, and the ``_rows`` ones (``_k``) must count
+             exactly 0, which the check says.
 
 The line before the last is the ``kernels`` JSON line (eleven entries,
 each with its own kernel's launches: phase 3's for KIVI, phase 4's for the
 attention kernels, flash_attention's f32 tensor-core, bf16 tensor-core
 and CUDA-core kernels as three entries, phase 5's for the scan, phase 7's
-counted step for ``selective_scan_bwd``), and the two
-before it phase 6's ``training`` and phase 7's ``mamba_training``
-summaries; the last line is
+counted step for ``selective_scan_bwd``), and the four
+before it phase 6's ``training``, phase 7's ``mamba_training``, phase 8's
+``moe_serving`` and phase 9's ``mla_serving`` summaries (launches, wall
+times, idle shares); the last line is
 ``{"ok": true, "device": {...}}``. Measurements also go to
 ``chiprun_out/chip_smoke.json``.
 The measured fused calibration goes beside it (``fused_calibration.json``).
@@ -177,6 +205,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+T_START = time.perf_counter()
 
 HBM_BPS = 3.35e12            # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -192,6 +221,9 @@ RATE = 0.16
 QUANT_OPS = 9                # min, max, sub, div, rint, 2 clamps, shift, or
 DEQUANT_OPS = 5              # shift, and, convert, fma (2)
 MAMBA_ARCH = "falcon-mamba-7b"
+MOE_ARCH = "olmoe-1b-7b"               # phase 8: MoE, GQA
+MLA_ARCH = "deepseek-v2-lite-16b"      # phase 9: MLA, MoE, a dense prefix
+HOST_RANGES = ("moe_dispatch",)        # the port's record_function ranges
 REPLACES = {"quantize": "src/repro/kernels/kivi/kernel.py:71",
             "dequantize": "src/repro/kernels/kivi/kernel.py:99",
             "decode_attn": "src/repro/kernels/decode_attn/kernel.py:133",
@@ -266,6 +298,10 @@ def ptxas_usage(log: str):
             out.append((name, f"{regs.group(1) if regs else '?'} registers, "
                               f"{spill}"))
     return out
+
+
+def elapsed() -> str:
+    return f"{time.perf_counter() - T_START:.0f} s since start"
 
 
 def fail(msg: str) -> None:
@@ -991,9 +1027,14 @@ def summarize_profile(events, device_type) -> dict:
     """From a profiler's events: the device's busy time (the union of its
     activities' intervals) and idle share over the profiled window (the
     first to the last event, host or device), the ten device operations
-    with the most total time, and the selective scan's (forward, and
-    backward with the sum of its partials) and KIVI's totals."""
-    dev = [e for e in events if e.device_type == device_type]
+    with the most total time, the selective scan's (forward, and backward
+    with the sum of its partials) and KIVI's totals, and the MoE dispatch's
+    (the ``moe_dispatch`` range of ``models/moe.py``: the device time of the
+    kernels launched inside it, and its host time, the wait for the
+    experts' row counts included). The device-side copies of host ranges
+    are not device activity and are left out."""
+    dev = [e for e in events
+           if e.device_type == device_type and e.name not in HOST_RANGES]
     if not dev:
         fail("the profile recorded no device activity")
     busy, end = 0.0, -math.inf
@@ -1009,12 +1050,17 @@ def summarize_profile(events, device_type) -> dict:
         calls[e.name] = calls.get(e.name, 0) + 1
     top = sorted(total, key=total.get, reverse=True)[:10]
     share = lambda pat: sum(t for k, t in total.items() if re.search(pat, k))
+    moe = [e for e in events
+           if e.name == "moe_dispatch" and e.device_type != device_type]
     return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / window,
             "top": [{"name": k, "ms": total[k] / 1e3, "calls": calls[k]}
                     for k in top],
             "scan_ms": share(r"scan_(fwd|bwd)|sum_parts") / 1e3,
-            "kivi_ms": share(r"quantize_(rows|cols)") / 1e3}
+            "kivi_ms": share(r"quantize_(rows|cols)") / 1e3,
+            "moe_dispatch_ms": sum(e.device_time_total for e in moe) / 1e3,
+            "moe_dispatch_host_ms": sum(e.cpu_time_total for e in moe) / 1e3,
+            "moe_dispatch_calls": len(moe)}
 
 
 def profile_call(fn, label: str, shares=("scan", "kivi")):
@@ -1043,17 +1089,18 @@ def profile_call(fn, label: str, shares=("scan", "kivi")):
     return out, result
 
 
-def profile_request(engine, request, label: str) -> dict:
+def profile_request(engine, request, label: str,
+                    shares=("scan", "kivi")) -> dict:
     """``profile_call`` over ``engine.process`` of one request."""
     out, result = profile_call(lambda: engine.process([request])[0],
-                               f"one {label} request")
+                               f"one {label} request", shares)
     out["hit_tier"] = result.hit_tier
     print(f"    hit tier of the profiled request: {result.hit_tier}")
     return out
 
 
 def serve(runner, cfg, n_active: int, kernels=(), want_hits: bool = True,
-          profile_label=None, **engine_kw):
+          profile_label=None, profile_shares=("scan", "kivi"), **engine_kw):
     """Serve the fixed workload (one context per task, ~8 s of Poisson
     requests, seeded) through ``build_engine`` with the fixed KIVI policy,
     and check the summary; with ``profile_label``, then profile the first
@@ -1093,7 +1140,8 @@ def serve(runner, cfg, n_active: int, kernels=(), want_hits: bool = True,
               f"requests, engine.process {wall_s:.2f} s wall")
         check_summary(summary, results, len(requests), want_hits)
         prof = (profile_request(make_rig().engine, requests[0],
-                                profile_label) if profile_label else None)
+                                profile_label, profile_shares)
+                if profile_label else None)
     return summary, results, requests, contexts, wall_s, launches, prof
 
 
@@ -1113,6 +1161,34 @@ def check_summary(summary, results, n_requests: int,
         fail("no request hit the cache: decompress never served")
     if any(len(r.answer) == 0 for r in results):
         fail("a request produced no answer tokens")
+
+
+def check_kivi_launches(launches: dict, names) -> dict:
+    """The KIVI forms an entry of the arrays ``names`` must launch, checked
+    against ``launches`` (the counts of one ``engine.process``): K-style
+    grouping along tokens (``quantize_rows``/``dequantize_rows``, the
+    ``_k`` counters) for ``k``, V-style grouping along features (the
+    ``_cols`` kernels, ``_v``) for every other array. A form the layout
+    launches must count above 0, and a form it never launches exactly 0.
+    Returns {counter: launched?}."""
+    from repro_torch.core.compression.kivi import _axis_for
+
+    styles = {"k" if _axis_for(name) == 0 else "v" for name in names}
+    want = {f"{op}_{style}": style in styles
+            for op in ("quantize", "dequantize") for style in ("k", "v")}
+    missing = [k for k, on in want.items() if on and launches[k] <= 0]
+    if missing:
+        fail(f"main path never launched {missing}")
+    stray = {k: launches[k] for k, on in want.items()
+             if not on and launches[k] != 0}
+    if stray:
+        fail(f"{stray} launched, but no array of {tuple(names)} is grouped "
+             "that way")
+    idle = [k for k, on in want.items() if not on]
+    print(f"  KIVI forms of {tuple(names)}: launched "
+          f"{[k for k, on in want.items() if on]}"
+          + (f"; {idle} at 0, as the layout needs" if idle else ""))
+    return want
 
 
 def phase_serving():
@@ -1142,9 +1218,7 @@ def phase_serving():
     for k, v in summary.items():
         print(f"    {k:28s} {v}")
     print(f"  kernel launches during engine.process: {launches}")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        fail(f"main path never launched {missing}")
+    check_kivi_launches(launches, ("k", "v"))
 
     # a real prefill entry through the kernel == the plain version's bytes
     kv = runner.prefill_entry(contexts[0].tokens)
@@ -1692,6 +1766,153 @@ def phase_mamba_training(card: str, scan_kernel) -> dict:
     return {"card_vs_cpu": card_cpu, "driver": driver, "full_width": full}
 
 
+def routing_gaps(fn):
+    """``fn()``, recording for every ``router_topk`` call the gap between
+    the k-th and the (k+1)-th largest router probability of its last row
+    (the token a decode step and its prefill both route). Returns (fn's
+    result, the gaps in call order)."""
+    from repro_torch.models import moe as moe_lib
+
+    plain, gaps = moe_lib.router_topk, []
+
+    def recorded(logits, top_k):
+        probs = torch.softmax(logits[-1].float(), dim=-1)
+        top = torch.topk(probs, top_k + 1).values
+        gaps.append(float(top[top_k - 1] - top[top_k]))
+        return plain(logits, top_k)
+
+    moe_lib.router_topk = recorded
+    try:
+        return fn(), gaps
+    finally:
+        moe_lib.router_topk = plain
+
+
+def phase_family_serving(arch: str, label: str) -> dict:
+    """Full-width ``arch`` (bf16, seeded) served through ``build_engine``
+    with the fixed KIVI policy, its KIVI launches counted by form
+    (``check_kivi_launches``) and one request profiled; a real prefill
+    entry's round trip through the kernel against the plain version; the
+    decode step against the prefill in bf16 (printed) and in f32 (held to
+    DECODE_TOL_F32). The f32 model is the same seed's init in f32, the bf16
+    weights before their rounding, at full depth: it is built after the
+    bf16 model is freed (deepseek-v2-lite's would not fit beside it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import KIVICompression
+    from repro_torch.models import build_model
+    from repro_torch.serving.runner import ModelRunner
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params, n_active = model.param_count(params), model.active_param_count()
+    m = cfg.moe
+    attn = (f"MLA r {cfg.mla.kv_lora_rank}, rope {cfg.mla.qk_rope_head_dim}"
+            if cfg.mla else f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads")
+    print(f"  {arch}: {cfg.n_layers} layers ({m.first_k_dense} dense "
+          f"prefix), d_model {cfg.d_model}, {attn}, {m.n_routed_experts} "
+          f"routed + {m.n_shared_experts} shared experts top-{m.top_k} of "
+          f"width {m.expert_d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}: {n_params:,} params ({n_active:,} active), "
+          f"init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    runner = ModelRunner(model, params, capacity=1024)
+    torch.cuda.reset_peak_memory_stats()
+    summary, _, _, contexts, wall_s, launches, prof = serve(
+        runner, cfg, n_active, profile_label=label,
+        profile_shares=("kivi", "moe_dispatch"))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("  summary (TTFT is simulated on the reference's A100 TimeModel, "
+          "not measured on this card):")
+    for k, v in summary.items():
+        print(f"    {k:28s} {v}")
+    print(f"  kernel launches during engine.process: {launches}; peak "
+          f"memory {peak_gb:.2f} GB")
+    print(f"    moe_dispatch host time {prof['moe_dispatch_host_ms']:.3f} ms "
+          f"in {prof['moe_dispatch_calls']} calls, "
+          f"{100 * prof['moe_dispatch_host_ms'] / prof['window_ms']:.2f} % "
+          "of the window")
+
+    # a real prefill entry through the kernel == the plain version's bytes
+    ctx = contexts[0]
+    kv = runner.prefill_entry(ctx.tokens)
+    names = tuple(k for k in kv if k != "positions")
+    forms = check_kivi_launches(launches, names)
+    for name in names:
+        if (kv[name].shape[:2] != (cfg.n_layers, len(ctx.tokens))
+                or not np.isfinite(kv[name]).all()):
+            fail(f"prefill KVData {name}: shape {kv[name].shape}, want "
+                 f"({cfg.n_layers}, {len(ctx.tokens)}, ...), finite values")
+    card, cpu = KIVICompression(device="cuda"), KIVICompression(device="cpu")
+    on_card, on_cpu = card.compress(kv, RATE), cpu.compress(kv, RATE)
+    for key, a in on_card.arrays.items():
+        if not np.array_equal(a, on_cpu.arrays[key]):
+            fail(f"compress of a real entry: {key} differs between the "
+                 "kernel and the plain version")
+    back_card, back_cpu = card.decompress(on_card), cpu.decompress(on_cpu)
+    for name in names:
+        if not np.array_equal(back_card[name], back_cpu[name]):
+            fail(f"decompress of a real entry: {name} differs between the "
+                 "kernel and the plain version")
+    shapes = {name: kv[name].shape for name in names}
+    print(f"  real {len(ctx.tokens)}-token entry {shapes}: compress and "
+          f"decompress bit-equal to the plain version "
+          f"({on_card.meta['bits']} bits, rate {on_card.rate:.4f})")
+
+    rel16 = decode_vs_prefill(model, params, ctx.tokens)
+    del runner, params, kv, on_card, on_cpu, back_card, back_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(seed=0, device="cuda")
+    print(f"  f32 model (the same seed): "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    rel32, gaps = routing_gaps(
+        lambda: decode_vs_prefill(model32, params32, ctx.tokens))
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_moe = sum(cfg.uses_moe_at(i) for i in range(cfg.n_layers))
+    low = min(range(len(gaps)), key=gaps.__getitem__)
+    gap = (f"smallest routing gap {gaps[low]:.3g} (k-th against (k+1)-th "
+           f"router probability of the last token, MoE layer "
+           f"{low % n_moe} of {n_moe})")
+    if not rel32 < DECODE_TOL_F32:
+        fail(f"decode step disagrees with prefill in f32: max rel err "
+             f"{rel32:.3g} (limit {DECODE_TOL_F32:g}); {gap}")
+    print(f"  decode step vs prefill logits: f32 max rel err {rel32:.3g}, "
+          f"within {DECODE_TOL_F32:g} ({gap}); bf16 {rel16:.3g} (printed: "
+          "a near tie in bf16 routing may pick another expert)")
+    return {"arch": arch, "n_params": n_params, "n_active": n_active,
+            "summary": summary, "launches": launches, "kivi_forms": forms,
+            "wall_s": wall_s, "peak_memory_gb": peak_gb,
+            "entry_shapes": shapes, "decode_rel_err_f32": rel32,
+            "decode_rel_err_bf16": rel16, "routing_gap_min": gaps[low],
+            "profile": prof}
+
+
+def family_line(out: dict, card: str) -> dict:
+    """The one-line summary of phase 8 or 9."""
+    prof = out["profile"]
+    return {"card": card, "arch": out["arch"], "n_params": out["n_params"],
+            "launches": out["launches"], "engine_wall_s": out["wall_s"],
+            "peak_memory_gb": out["peak_memory_gb"],
+            "hit_rate": out["summary"]["hit_rate"],
+            "decode_rel_err_f32": out["decode_rel_err_f32"],
+            "decode_rel_err_bf16": out["decode_rel_err_bf16"],
+            "profile_idle_share": prof["idle_share"],
+            "profile_busy_ms": prof["busy_ms"],
+            "profile_window_ms": prof["window_ms"],
+            "profile_moe_dispatch_ms": prof["moe_dispatch_ms"],
+            "profile_moe_dispatch_host_ms": prof["moe_dispatch_host_ms"],
+            "profile_top3": [op["name"][:60] for op in prof["top"][:3]]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -1722,7 +1943,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    print("[1/7] build")
+    print(f"[1/9] build ({elapsed()})")
     attn_kernels = {"decode_attn": decode_kernel,
                     "fused_prefill": fused_kernel,
                     "flash_attention": flash_kernel}
@@ -1739,7 +1960,7 @@ def main() -> int:
         for kname, usage in ptxas_usage(log):
             print(f"    ptxas {kname}: {usage}")
 
-    print("[2/7] kernels against the plain version")
+    print(f"[2/9] kernels against the plain version ({elapsed()})")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
     phase_kivi_layouts(kernel, ref)
     timed_rows = {
@@ -1755,14 +1976,16 @@ def main() -> int:
     decode_layouts_err = phase_decode_layouts(decode_ops, decode_ref,
                                               decode_kernel)
 
-    print("[3/7] serving full-width adaptcache-8b through build_engine")
+    print(f"[3/9] serving full-width adaptcache-8b through build_engine "
+          f"({elapsed()})")
     summary, launches, wall_s, serving, profile3 = phase_serving()
 
-    print("[4/7] fused compute: kernel_bench calibration, then serving "
-          "priced with it")
+    print(f"[4/9] fused compute: kernel_bench calibration, then serving "
+          f"priced with it ({elapsed()})")
     fused = phase_fused(attn_kernels, summary, serving)
 
-    print("[5/7] serving full-width falcon-mamba-7b through build_engine")
+    print(f"[5/9] serving full-width falcon-mamba-7b through build_engine "
+          f"({elapsed()})")
     del serving                            # free adaptcache-8b's weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -1770,13 +1993,22 @@ def main() -> int:
           "GB left on the card")
     mamba = phase_mamba(scan_kernel)
 
-    print("[6/7] training: the card against the CPU, the train driver's "
-          "resume, full-width adaptcache-8b")
+    print(f"[6/9] training: the card against the CPU, the train driver's "
+          f"resume, full-width adaptcache-8b ({elapsed()})")
     training = phase_training(smi)
 
-    print("[7/7] Mamba training: the card against the CPU, the serve "
-          "driver's training, full-width falcon-mamba-7b")
+    print(f"[7/9] Mamba training: the card against the CPU, the serve "
+          f"driver's training, full-width falcon-mamba-7b ({elapsed()})")
     mamba_training = phase_mamba_training(smi, scan_kernel)
+
+    print(f"[8/9] MoE serving: full-width {MOE_ARCH} through build_engine "
+          f"({elapsed()})")
+    moe_serving = phase_family_serving(MOE_ARCH, "phase-8")
+
+    print(f"[9/9] MLA serving: full-width {MLA_ARCH} through build_engine "
+          f"({elapsed()})")
+    mla_serving = phase_family_serving(MLA_ARCH, "phase-9")
+    print(f"  all phases passed ({elapsed()})")
 
     entries = []
     for op in ("quantize", "dequantize"):
@@ -1845,7 +2077,8 @@ def main() -> int:
         "kernels": entries, "summary": summary, "launches": launches,
         "engine_wall_s": wall_s, "profile_phase3": profile3,
         "fused": fused, "mamba": mamba, "training": training,
-        "mamba_training": mamba_training},
+        "mamba_training": mamba_training, "moe_serving": moe_serving,
+        "mla_serving": mla_serving, "elapsed_s": time.perf_counter() - T_START},
         indent=1, default=float))
     (out_dir / "fused_calibration.json").write_text(
         json.dumps(fused["calibration"], indent=2))
@@ -1886,6 +2119,8 @@ def main() -> int:
         "profile_scan_ms": mfull["profile"]["scan_ms"],
         "profile_top3": [op["name"][:60] for op in
                          mfull["profile"]["top"][:3]]}}))
+    print(json.dumps({"moe_serving": family_line(moe_serving, smi)}))
+    print(json.dumps({"mla_serving": family_line(mla_serving, smi)}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

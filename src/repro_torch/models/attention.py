@@ -1,19 +1,27 @@
-"""Dense grouped-query attention (with qk-norm and partial rope).
+"""Attention: dense grouped-query attention (with qk-norm and partial rope)
+and MLA (DeepSeek's multi-head latent attention).
 
-Counterpart of the GQA half of ``repro.models.attention``. Two entry modes,
-chosen by shape as in the reference:
-  * full   — S tokens, causal mask; returns the S-token K/V it produced;
-  * decode — S == 1 with a cache and ``cur_index``: writes the new K/V row
-    at ``cur_index`` (scalar, or one slot per batch lane) and attends over
+Counterpart of ``repro.models.attention`` (all but the quantized decode
+cache, ROADMAP §A10). Two entry modes, chosen by shape as in the reference:
+  * full   — S tokens, causal mask; returns the S-token cache rows it
+    produced;
+  * decode — S == 1 with a cache and ``cur_index``: writes the new row at
+    ``cur_index`` (scalar, or one slot per batch lane) and attends over
     the whole fixed-capacity cache with the visibility mask.
 
-Cache layout: {"k": (B, C, n_kv, hd), "v": (B, C, n_kv, hd)}.
+Cache layouts:
+  GQA: {"k": (B, C, n_kv, hd), "v": (B, C, n_kv, hd)}
+  MLA: {"ckv": (B, C, r), "krope": (B, C, rope_dim)} — the compressed
+       latent, which AdaptCache's storage tier compresses further.
+MLA's full mode decompresses the latent into per-head K and V; its decode
+uses the absorbed form (q folded through W_uk, the output through W_uv),
+O(S·r) a head.
 
 The reference's arrays are immutable and its decode returns a new cache;
 here the decode write goes into the given cache tensors in place (the
 returned dict holds the same tensors), which saves a copy of the cache on
-every step. Attention itself is plain matmul and softmax, as the reference's
-``_gqa_scores_out`` is plain jnp and no Pallas kernel.
+every step. Attention itself is plain matmul and softmax, as the
+reference's is plain jnp and no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AttnKind, ModelConfig
 from repro_torch.models.layers import Params, apply_rope, rmsnorm
 
 NEG_INF = -1e30
@@ -29,8 +37,35 @@ NEG_INF = -1e30
 Index = Union[int, torch.Tensor]
 
 
+def param_shapes(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Params:
+    """The layer's parameter shapes, with ``lead`` (the stacked layer
+    groups) in front of each."""
+    d, h, lead = cfg.d_model, cfg.n_heads, tuple(lead)
+    if cfg.attn_kind == AttnKind.MLA:
+        m = cfg.mla
+        r, nope, rope = m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim
+        shapes = {"wq": (d, h * (nope + rope)), "w_dkv": (d, r),
+                  "w_kr": (d, rope), "w_uk": (r, h * nope),
+                  "w_uv": (r, h * m.v_head_dim), "wo": (h * m.v_head_dim, d),
+                  "kv_norm": (r,)}
+    else:
+        hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+        shapes = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
+                  "wo": (h * hd, d)}
+        if cfg.qk_norm:
+            shapes["q_norm"] = (hd,)
+            shapes["k_norm"] = (hd,)
+    return {k: lead + v for k, v in shapes.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
                device, lead: Tuple[int, ...] = ()) -> Params:
+    if cfg.attn_kind == AttnKind.MLA:
+        m = cfg.mla
+        shapes = {"ckv": m.kv_lora_rank, "krope": m.qk_rope_head_dim}
+        return {name: torch.zeros(lead + (batch, capacity, n), dtype=dtype,
+                                  device=device)
+                for name, n in shapes.items()}
     hd = cfg.resolved_head_dim
     shape = lead + (batch, capacity, cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -140,6 +175,8 @@ def attention_fwd(
     cur_index: Optional[Index] = None,    # decode mode when S==1 & cache
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Params]:
+    if cfg.attn_kind == AttnKind.MLA:
+        return mla_fwd(p, cfg, x, positions, cache, cur_index)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
@@ -168,3 +205,87 @@ def attention_fwd(
         out = _gqa_scores_out(q, k, v, mask)
     new_cache = {"k": k, "v": v}  # prefill artifact
     return out.reshape(b, s, -1) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA forward
+# ---------------------------------------------------------------------------
+
+def mla_fwd(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: Optional[Params] = None,
+    cur_index: Optional[Index] = None,
+) -> Tuple[torch.Tensor, Params]:
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                           m.v_head_dim, m.kv_lora_rank)
+    scale = (nope + rope_d) ** -0.5
+
+    q = (x @ p["wq"]).reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv_new = rmsnorm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)  # (B,S,r)
+    kr_new = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]              # (B,S,rope)
+
+    w_uk = p["w_uk"].reshape(r, h, nope)
+    w_uv = p["w_uv"].reshape(r, h, vd)
+
+    decode = cache is not None and cur_index is not None and s == 1
+    if decode:
+        cap = cache["ckv"].shape[1]
+        ckv = _write_cache(cache["ckv"], ckv_new, cur_index)
+        krope = _write_cache(cache["krope"], kr_new, cur_index)
+        # absorbed form: W_uk folded into q, W_uv applied to the weighted
+        # latent sum
+        q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)      # (B,1,H,r)
+        sc = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
+              + torch.einsum("bshd,btd->bhst", q_rope, krope))
+        sc = (sc.to(torch.float32) * scale
+              + _decode_mask(cur_index, cap, x.device)[:, :, 0])
+        pr = torch.softmax(sc, dim=-1).to(x.dtype)
+        lat = torch.einsum("bhst,btr->bshr", pr, ckv)             # (B,1,H,r)
+        out = torch.einsum("bshr,rhv->bshv", lat, w_uv)
+        return out.reshape(b, 1, -1) @ p["wo"], {"ckv": ckv, "krope": krope}
+
+    # full (train / prefill): the decompressed form
+    k_nope = torch.einsum("bsr,rhn->bshn", ckv_new, w_uk)
+    v = torch.einsum("bsr,rhv->bshv", ckv_new, w_uv)
+    if s >= FLASH_THRESHOLD:
+        out = _chunked_mla(q_nope, q_rope, k_nope, kr_new, v, scale)
+    else:
+        sc = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+              + torch.einsum("bshd,btd->bhst", q_rope, kr_new))
+        sc = (sc.to(torch.float32) * scale
+              + _causal_mask(s, s, x.device)[:, :, 0])
+        pr = torch.softmax(sc, dim=-1).to(x.dtype)
+        out = torch.einsum("bhst,bthv->bshv", pr, v)
+    new_cache = {"ckv": ckv_new, "krope": kr_new}
+    return out.reshape(b, s, -1) @ p["wo"], new_cache
+
+
+def _chunked_mla(q_nope, q_rope, k_nope, k_rope, v, scale,
+                 chunk: int = FLASH_CHUNK):
+    """Query-chunked causal MLA attention. q_nope: (B,S,H,n)."""
+    b, s, h, _ = q_nope.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    kj = torch.arange(s, device=q_nope.device)[None, :]
+    outs = []
+    for off in range(0, s, chunk):
+        sl = slice(off, off + chunk)
+        sc = (torch.einsum("bchn,bthn->bhct", q_nope[:, sl], k_nope)
+              + torch.einsum("bchd,btd->bhct", q_rope[:, sl], k_rope)
+              ).to(torch.float32) * scale
+        qi = off + torch.arange(chunk, device=q_nope.device)[:, None]
+        sc = sc + _additive(kj <= qi)[None, None]
+        pr = torch.softmax(sc, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhct,bthv->bchv", pr, v))
+    return torch.cat(outs, dim=1)

@@ -53,9 +53,19 @@ class Model:
                    transformer._leaves(transformer.param_shapes(self.cfg)))
 
     def active_param_count(self) -> int:
-        """Params touched per token, counted from shapes without allocating
-        (dense models: all of them)."""
-        return self.param_count()
+        """Params touched per token, counted from shapes without allocating:
+        all of them but, in each MoE layer, the E - k routed experts a
+        token does not reach."""
+        total = self.param_count()
+        cfg = self.cfg
+        if cfg.moe is None:
+            return total
+        m = cfg.moe
+        n_moe_layers = sum(1 for i in range(cfg.n_layers)
+                           if cfg.uses_moe_at(i))
+        per_expert = 3 * cfg.d_model * m.expert_d_ff
+        return total - n_moe_layers * (m.n_routed_experts - m.top_k) \
+            * per_expert
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,29 +1,38 @@
-"""Decoder-only LM: dense GQA attention with a gated MLP, or Mamba-1 blocks.
+"""Decoder-only LM: GQA or MLA attention, or Mamba-1 blocks, each with a
+gated MLP or a mixture-of-experts FFN.
 
 Counterpart of ``repro.models.transformer`` for the dense family (the
-adaptcache-8b / Llama-3.1-8B shape and the other dense GQA configs) and the
-pure-SSM family (falcon-mamba). The parameter and cache trees keep the
-reference's layout, so a JAX param pytree carries across leaf for leaf
-(``convert.params_from_numpy``):
+adaptcache-8b / Llama-3.1-8B shape and the other dense GQA configs), the
+MoE family (olmoe; deepseek-v2-lite, with MLA and a dense first layer), the
+pure-SSM family (falcon-mamba) and the Mamba/attention hybrid with MoE
+(jamba). The parameter and cache trees keep the reference's layout, so a
+JAX param pytree carries across leaf for leaf (``convert.params_from_numpy``):
 
   params: {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
-           "prefix": [], "stack": [block, ...]}  — one block per position
-           of the layer pattern, its leaves stacked on a leading
-           layer-group axis G; an attention block is {"ln1", "attn"[,
-           "ln2", "ffn"]}, a mamba block {"ln1", "mamba"}
-  cache : {"prefix": [], "stack": [{"self": {"k": (G,B,C,Kv,hd), "v"}}
+           "prefix": [block, ...], "stack": [block, ...]} — the prefix holds
+           the layers whose structure differs from the repeating pattern
+           (deepseek's dense first layer), unstacked; the stack one block
+           per position of the layer pattern, its leaves stacked on a
+           leading layer-group axis G. An attention block is {"ln1",
+           "attn"[, "ln2", "ffn" or "ffn_moe"]}, a mamba block {"ln1",
+           "mamba"[, "ln2", "ffn" or "ffn_moe"]}
+  cache : {"prefix": [{"self": {"ckv": (B,C,r), "krope": (B,C,rope)}}, ...],
+           "stack": [{"self": {"k": (G,B,C,Kv,hd), "v"} or {"ckv", "krope"}}
            or {"mamba": {"conv": (G,B,c-1,d_in), "ssm": (G,B,d_in,n)}}]}
 
 The reference scans over the stacked groups with ``lax.scan``; here a
-Python loop walks them, indexing views of the stacked tensors. Prefill and
-decode write the cache in place.
+Python loop walks them, indexing views of the stacked tensors, after the
+prefix layers. Prefill and decode write the cache in place.
 
 Training (``forward_train``, ``loss_fn``) splits each stacked leaf once a
 step with ``unbind``: indexing ``leaf[g]`` a layer would, in backward, add a
 zero tensor of the whole stack into the gradient once a layer, where
 ``unbind``'s backward stacks the layers' gradients once. Remat wraps each
 layer group in ``torch.utils.checkpoint`` (the reference: ``jax.checkpoint``
-on the scanned group body), which changes memory, not the numbers.
+on the scanned group body), which changes memory, not the numbers. The MoE
+layers' load-balance losses are summed over the layers in order, and
+training's MoE drops slots past each expert's capacity, as the
+reference's does; prefill and decode are dropless.
 """
 from __future__ import annotations
 
@@ -33,21 +42,18 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import AttnKind, FFNKind, LayerKind, ModelConfig
+from repro_torch.configs.base import FFNKind, LayerKind, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import Params, _dtype, mlp_fwd, rmsnorm
 
-# the families whose layers this slice does not port yet (ROADMAP §A8)
+# the families whose layers the port does not have yet (ROADMAP §A8)
 _LATER = "ported by ROADMAP §A8 (the other model families)"
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the model families the port does not have yet."""
-    if cfg.attn_kind != AttnKind.GQA:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is {_LATER}")
-    if cfg.ffn_kind == FFNKind.MOE or cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFN is {_LATER}")
     if any(k not in (LayerKind.ATTN, LayerKind.MAMBA)
            for k in cfg.layer_kinds()):
         raise NotImplementedError(f"{cfg.name}: cross-attention layers are "
@@ -58,46 +64,70 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: vision patches are {_LATER}")
 
 
+def _prefix_count(cfg: ModelConfig) -> int:
+    """Layers whose tree structure differs from the stacked groups'."""
+    if cfg.moe is not None and cfg.moe.first_k_dense > 0:
+        return cfg.moe.first_k_dense
+    return 0
+
+
 def _pattern(cfg: ModelConfig) -> Tuple[Tuple[LayerKind, ...], int]:
-    """(the layer kinds of one group, the number of stacked groups)."""
-    pattern, _ = cfg.block_group()
-    return pattern, cfg.n_layers // len(pattern)
+    """(the layer kinds of one stacked group, the number of groups): the
+    groups cover the layers after the prefix."""
+    npre = _prefix_count(cfg)
+    period = len(cfg.block_group()[0])
+    n_scan = cfg.n_layers - npre
+    if n_scan % period:
+        raise ValueError(f"{cfg.name}: {n_scan} layers after the prefix are "
+                         f"not whole groups of {period}")
+    return cfg.layer_kinds()[npre:npre + period], n_scan // period
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
-def param_shapes(cfg: ModelConfig) -> Params:
-    """The parameter tree with shape tuples for leaves (no allocation)."""
-    check_supported(cfg)
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    pattern, g = _pattern(cfg)
-
-    def block(kind: LayerKind) -> Params:
-        if kind == LayerKind.MAMBA:
-            blk: Params = {"ln1": (g, d),
-                           "mamba": mamba_lib.param_shapes(cfg, (g,))}
+def _block_shapes(cfg: ModelConfig, layer: int,
+                  lead: Tuple[int, ...]) -> Params:
+    """Layer ``layer``'s parameter shapes, ``lead`` in front of each."""
+    d = cfg.d_model
+    if cfg.layer_kinds()[layer] == LayerKind.MAMBA:
+        blk: Params = {"ln1": lead + (d,),
+                       "mamba": mamba_lib.param_shapes(cfg, lead)}
+    else:
+        blk = {"ln1": lead + (d,), "attn": attn_lib.param_shapes(cfg, lead)}
+    if cfg.ffn_kind != FFNKind.NONE:
+        blk["ln2"] = lead + (d,)
+        if cfg.uses_moe_at(layer):
+            blk["ffn_moe"] = moe_lib.param_shapes(cfg, lead)
         else:
-            attn = {"wq": (g, d, cfg.n_heads * hd),
-                    "wk": (g, d, cfg.n_kv_heads * hd),
-                    "wv": (g, d, cfg.n_kv_heads * hd),
-                    "wo": (g, cfg.n_heads * hd, d)}
-            if cfg.qk_norm:
-                attn["q_norm"] = (g, hd)
-                attn["k_norm"] = (g, hd)
-            blk = {"ln1": (g, d), "attn": attn}
-        if cfg.ffn_kind != FFNKind.NONE:
-            blk["ln2"] = (g, d)
-            blk["ffn"] = {"wi_gate": (g, d, cfg.d_ff),
-                          "wi_up": (g, d, cfg.d_ff), "wo": (g, cfg.d_ff, d)}
-        return blk
+            ff = cfg.d_ff
+            if cfg.moe is not None and layer < cfg.moe.first_k_dense:
+                ff = cfg.moe.dense_d_ff or cfg.d_ff
+            blk["ffn"] = {"wi_gate": lead + (d, ff), "wi_up": lead + (d, ff),
+                          "wo": lead + (ff, d)}
+    return blk
 
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree with shape tuples for leaves (no allocation).
+    Each stacked position takes the structure of its first group's layer,
+    as the reference's vmapped init does; every group must agree."""
+    check_supported(cfg)
+    npre = _prefix_count(cfg)
+    pattern, g = _pattern(cfg)
+    period = len(pattern)
+    for i in range(npre, cfg.n_layers):
+        j = npre + (i - npre) % period
+        if cfg.uses_moe_at(i) != cfg.uses_moe_at(j):
+            raise ValueError(f"{cfg.name}: layer {i} and layer {j} share a "
+                             "stacked position but not its FFN kind")
+    d = cfg.d_model
     p: Params = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         p["lm_head"] = (d, cfg.vocab_size)
-    p["prefix"] = []
-    p["stack"] = [block(kind) for kind in pattern]
+    p["prefix"] = [_block_shapes(cfg, i, ()) for i in range(npre)]
+    p["stack"] = [_block_shapes(cfg, npre + j, (g,)) for j in range(period)]
     return p
 
 
@@ -130,8 +160,10 @@ def _is_norm(name: str) -> bool:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random init on ``gen``'s device, with the reference's scheme:
-    norms are ones, the embedding N(0, 0.02), every attention and MLP
-    matrix N(0, 1/d_in); mamba leaves as ``mamba.init_mamba_leaf``."""
+    norms are ones, the embedding N(0, 0.02), every attention, MLP, router
+    and expert matrix N(0, 1/d_in); mamba leaves as
+    ``mamba.init_mamba_leaf``. The experts' stacks are drawn one matrix at
+    a time, so no f32 copy of a whole stack exists."""
     dtype = _dtype(cfg.param_dtype)
 
     def init(path, shape):
@@ -141,6 +173,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
         if _is_norm(name):
             return torch.ones(shape, dtype=dtype, device=gen.device)
         scale = 0.02 if name == "embed" else shape[-2] ** -0.5
+        if "experts" in path:
+            out = torch.empty(shape, dtype=dtype, device=gen.device)
+            for mat in out.view((-1,) + tuple(shape[-2:])):
+                mat.copy_(torch.randn(mat.shape, generator=gen,
+                                      device=gen.device) * scale)
+            return out
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device)
         return (w * scale).to(dtype)
@@ -167,15 +205,17 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
             "(ROADMAP §A10)")
     dtype = _dtype(cfg.dtype)
     pattern, g = _pattern(cfg)
+    kinds = cfg.layer_kinds()
 
-    def block(kind: LayerKind) -> Params:
+    def block(kind: LayerKind, lead: Tuple[int, ...]) -> Params:
         if kind == LayerKind.MAMBA:
             return {"mamba": mamba_lib.init_mamba_cache(cfg, batch, dtype,
-                                                        device, lead=(g,))}
+                                                        device, lead=lead)}
         return {"self": attn_lib.init_cache(cfg, batch, capacity, dtype,
-                                            device, lead=(g,))}
+                                            device, lead=lead)}
 
-    return {"prefix": [], "stack": [block(kind) for kind in pattern]}
+    return {"prefix": [block(kinds[i], ()) for i in range(_prefix_count(cfg))],
+            "stack": [block(kind, (g,)) for kind in pattern]}
 
 
 # ---------------------------------------------------------------------------
@@ -184,11 +224,13 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
 
 def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
                  positions, cache_j: Optional[Params], cur_index,
-                 decode: bool):
-    """One layer. Decode updates ``cache_j`` in place (an attention layer
-    writes its K/V row, a mamba layer its conv window and state); prefill
-    (a cache but no decode) copies its S K/V rows into slots [0, S), or a
-    mamba layer's final conv window and state."""
+                 decode: bool, moe_dropless: bool = False):
+    """One layer; returns (x, the MoE balance loss or None). Decode updates
+    ``cache_j`` in place (an attention layer writes its cache row, a mamba
+    layer its conv window and state); prefill (a cache but no decode)
+    copies its S cache rows into slots [0, S), or a mamba layer's final
+    conv window and state. The MoE FFN is dropless under decode or
+    ``moe_dropless``."""
     h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
     if kind == LayerKind.MAMBA:
         cm = None if cache_j is None else cache_j["mamba"]
@@ -206,27 +248,59 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
             out, _ = attn_lib.attention_fwd(bp["attn"], cfg, h, positions,
                                             cache=cj, cur_index=cur_index)
         else:
-            out, kv = attn_lib.attention_fwd(bp["attn"], cfg, h, positions)
+            out, rows = attn_lib.attention_fwd(bp["attn"], cfg, h, positions)
             if cj is not None:
-                s = kv["k"].shape[1]
-                cj["k"][:, :s] = kv["k"].to(cj["k"].dtype)
-                cj["v"][:, :s] = kv["v"].to(cj["v"].dtype)
+                s = x.shape[1]
+                for name, val in rows.items():
+                    cj[name][:, :s] = val.to(cj[name].dtype)
     x = x + out
+    aux = None
     if cfg.ffn_kind != FFNKind.NONE:
         h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + mlp_fwd(bp["ffn"], h)
-    return x
+        if "ffn_moe" in bp:
+            out, aux = moe_lib.moe_fwd(bp["ffn_moe"], cfg, h,
+                                       dropless=moe_dropless or decode)
+        else:
+            out = mlp_fwd(bp["ffn"], h)
+        x = x + out
+    return x, aux
+
+
+def _with_aux(total: torch.Tensor, aux: Optional[torch.Tensor]):
+    return total if aux is None else total + aux
+
+
+def _run_prefix(params: Params, cfg: ModelConfig, x, positions,
+                cache: Optional[Params], cur_index, decode: bool,
+                moe_dropless: bool):
+    """The unstacked prefix layers; returns (x, their MoE balance losses
+    summed)."""
+    kinds = cfg.layer_kinds()
+    aux = x.new_zeros((), dtype=torch.float32)
+    for i, bp in enumerate(params["prefix"]):
+        cj = None if cache is None else cache["prefix"][i]
+        x, a = _apply_block(bp, cfg, kinds[i], x, positions, cj, cur_index,
+                            decode, moe_dropless)
+        aux = _with_aux(aux, a)
+    return x, aux
 
 
 def _run_stack(params: Params, cfg: ModelConfig, x, positions,
-               cache: Optional[Params], cur_index, decode: bool):
+               cache: Optional[Params], cur_index, decode: bool,
+               moe_dropless: bool = False):
+    """The prefix layers, then the stacked groups; returns (x, the MoE
+    balance losses summed over the layers)."""
+    x, aux = _run_prefix(params, cfg, x, positions, cache, cur_index, decode,
+                         moe_dropless)
     pattern, n_groups = _pattern(cfg)
     for g in range(n_groups):
         for j, kind in enumerate(pattern):
             cj = None if cache is None else _group(cache["stack"][j], g)
-            x = _apply_block(_group(params["stack"][j], g), cfg, kind, x,
-                             positions, cj, cur_index, decode)
-    return x
+            x, a = _apply_block(_group(params["stack"][j], g), cfg, kind, x,
+                                positions, cj, cur_index, decode,
+                                moe_dropless)
+            aux = _with_aux(aux, a)
+    return x, aux
 
 
 def _unbind(tree, n: int) -> List[Params]:
@@ -236,23 +310,28 @@ def _unbind(tree, n: int) -> List[Params]:
 
 
 def _train_stack(params: Params, cfg: ModelConfig, x, positions,
-                 remat: bool):
+                 remat: bool, moe_dropless: bool = False):
     """The layer stack for training: no cache, each stacked leaf split
-    once (``_unbind``), each group under ``checkpoint`` with ``remat``."""
+    once (``_unbind``), each group under ``checkpoint`` with ``remat``
+    (the prefix layers outside it, as the reference's are outside its
+    scan). Returns (x, the MoE balance losses summed over the layers)."""
+    x, aux = _run_prefix(params, cfg, x, positions, None, None, False,
+                         moe_dropless)
     pattern, n_groups = _pattern(cfg)
     groups = list(zip(*(_unbind(params["stack"][j], n_groups)
                         for j in range(len(pattern)))))
 
-    def group(x, g: int):
+    def group(x, aux, g: int):
         for bp, kind in zip(groups[g], pattern):
-            x = _apply_block(bp, cfg, kind, x, positions, None, None,
-                             decode=False)
-        return x
+            x, a = _apply_block(bp, cfg, kind, x, positions, None, None,
+                                False, moe_dropless)
+            aux = _with_aux(aux, a)
+        return x, aux
 
     for g in range(n_groups):
-        x = (checkpoint(group, x, g, use_reentrant=False) if remat
-             else group(x, g))
-    return x
+        x, aux = (checkpoint(group, x, aux, g, use_reentrant=False) if remat
+                  else group(x, aux, g))
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -284,14 +363,14 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def forward_train(params: Params, cfg: ModelConfig,
-                  batch: Dict[str, torch.Tensor], remat: bool = False
+                  batch: Dict[str, torch.Tensor], remat: bool = False,
+                  moe_dropless: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced logits over the full sequence. Returns (logits, aux);
-    aux (the MoE balance loss in the reference) is 0 for the families the
-    port has."""
+    """Teacher-forced logits over the full sequence. Returns (logits, aux),
+    aux the MoE layers' balance losses summed (0 without MoE)."""
     x = embed_inputs(params, cfg, batch)
-    x = _train_stack(params, cfg, x, _positions(x), remat)
-    return lm_logits(params, cfg, x), x.new_zeros((), dtype=torch.float32)
+    x, aux = _train_stack(params, cfg, x, _positions(x), remat, moe_dropless)
+    return lm_logits(params, cfg, x), aux
 
 
 def chunked_ce_loss(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -330,25 +409,27 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             aux_weight: float = 0.01, remat: bool = False,
             loss_chunk: int = 512) -> torch.Tensor:
     x = embed_inputs(params, cfg, batch)
-    x = _train_stack(params, cfg, x, _positions(x), remat)
-    aux = x.new_zeros((), dtype=torch.float32)
+    x, aux = _train_stack(params, cfg, x, _positions(x), remat)
     loss = chunked_ce_loss(params, cfg, x, batch["labels"], chunk=loss_chunk)
     return loss + aux_weight * aux
 
 
 @torch.no_grad()
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            capacity: int) -> Tuple[torch.Tensor, Params]:
+            capacity: int, moe_dropless: bool = True
+            ) -> Tuple[torch.Tensor, Params]:
     """Process the full prompt; return (last-position logits, decode cache).
 
-    K/V of the S prompt tokens land in zeroed capacity-C buffers at slots
-    [0, S) (C >= S); mamba layers keep their final conv window and state."""
+    The S prompt tokens' cache rows (K/V, or MLA's latent) land in zeroed
+    capacity-C buffers at slots [0, S) (C >= S); mamba layers keep their
+    final conv window and state."""
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     if s > capacity:
         raise ValueError(f"prompt of {s} tokens exceeds capacity {capacity}")
     cache = init_cache(cfg, b, capacity, x.device)
-    x = _run_stack(params, cfg, x, _positions(x), cache, None, decode=False)
+    x, _ = _run_stack(params, cfg, x, _positions(x), cache, None,
+                      decode=False, moe_dropless=moe_dropless)
     return lm_logits(params, cfg, x[:, -1:, :]), cache
 
 
@@ -371,5 +452,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                                device=x.device)
     else:
         positions = pos.to(x.device, torch.long)[:, None]
-    x = _run_stack(params, cfg, x, positions, cache, cur_index, decode=True)
+    x, _ = _run_stack(params, cfg, x, positions, cache, cur_index,
+                      decode=True)
     return lm_logits(params, cfg, x), cache

@@ -1,13 +1,13 @@
 """ModelRunner: bridges the storage-layer KVData format and the model's
 decode-cache tree, and runs prefill / greedy generation.
 
-Counterpart of ``repro.serving.runner`` for the dense GQA and the Mamba
-models the port has (the MLA KVData arrays come with that family, ROADMAP
-§A8).
+Counterpart of ``repro.serving.runner``.
 
 KVData layout (batch squeezed, numpy, storage-friendly):
   GQA :  {"k": (L_attn, T, Kv*hd), "v": (L_attn, T, Kv*hd)}
-  SSM :  {"ssm": (L_m, d_in, n), "conv": (L_m, c-1, d_in)}
+  MLA :  {"ckv": (L_attn, T, r), "krope": (L_attn, T, rope_d)}
+  SSM :  {"ssm": (L_m, d_in, n), "conv": (L_m, c-1, d_in)}   (+ attention
+         arrays for hybrids)
   always: {"positions": (T_kept,)} after token dropping.
 
 The runner computes on the device its params live on.
@@ -20,20 +20,36 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LayerKind, ModelConfig
+from repro_torch.configs.base import AttnKind, LayerKind, ModelConfig
 from repro_torch.core.compression.base import KVData
 from repro_torch.models import Model
+from repro_torch.models.transformer import _prefix_count
 
 
 def _layer_cache_refs(cache, cfg: ModelConfig):
     """Yield (layer_idx, kind, (section, position, group)) for every
     layer's block cache: ``cache[section][position]`` holds its leaves,
-    indexed at ``group`` on the stacked axis. (Unstacked prefix layers
-    come with the MoE family, ROADMAP §A8.)"""
+    indexed at ``group`` on the stacked axis, or, for an unstacked prefix
+    layer, ``group`` None."""
+    npre = _prefix_count(cfg)
     period = len(cfg.block_group()[0])
     for i, kind in enumerate(cfg.layer_kinds()):
-        g, j = divmod(i, period)
-        yield i, kind, ("stack", j, g)
+        if i < npre:
+            yield i, kind, ("prefix", i, None)
+        else:
+            g, j = divmod(i - npre, period)
+            yield i, kind, ("stack", j, g)
+
+
+def _at(leaf: torch.Tensor, g) -> torch.Tensor:
+    """A layer's cache leaf (batch leading): group ``g`` of a stacked
+    leaf, or a prefix layer's own leaf (``g`` None)."""
+    return leaf if g is None else leaf[g]
+
+
+def _attn_names(cfg: ModelConfig) -> Tuple[str, str]:
+    """The KVData arrays of an attention layer's cache."""
+    return ("ckv", "krope") if cfg.attn_kind == AttnKind.MLA else ("k", "v")
 
 
 def _host(xs: List[torch.Tensor]) -> np.ndarray:
@@ -44,18 +60,21 @@ def _host(xs: List[torch.Tensor]) -> np.ndarray:
 
 def cache_to_kvdata(cache, cfg: ModelConfig, n_tokens: int) -> KVData:
     """Extract a storable KVData from a (batch=1) cache tree."""
-    ks, vs, ssms, convs = [], [], [], []
+    names = _attn_names(cfg)
+    attn = {name: [] for name in names}
+    ssms, convs = [], []
     for _, kind, (sect, j, g) in _layer_cache_refs(cache, cfg):
         blk = cache[sect][j]
         if kind == LayerKind.MAMBA:
-            ssms.append(blk["mamba"]["ssm"][g, 0])
-            convs.append(blk["mamba"]["conv"][g, 0])
+            ssms.append(_at(blk["mamba"]["ssm"], g)[0])
+            convs.append(_at(blk["mamba"]["conv"], g)[0])
         else:
-            ks.append(blk["self"]["k"][g, 0, :n_tokens].reshape(n_tokens, -1))
-            vs.append(blk["self"]["v"][g, 0, :n_tokens].reshape(n_tokens, -1))
+            for name in names:
+                rows = _at(blk["self"][name], g)[0, :n_tokens]
+                attn[name].append(rows.reshape(n_tokens, -1))
     out: KVData = {}
-    if ks:
-        out["k"], out["v"] = _host(ks), _host(vs)
+    if attn[names[0]]:
+        out.update((name, _host(xs)) for name, xs in attn.items())
     if ssms:
         out["ssm"], out["conv"] = _host(ssms), _host(convs)
     out["positions"] = np.arange(n_tokens, dtype=np.int32)
@@ -65,25 +84,25 @@ def cache_to_kvdata(cache, cfg: ModelConfig, n_tokens: int) -> KVData:
 def write_kvdata(cache, kv: KVData, cfg: ModelConfig, lane: int,
                  device) -> int:
     """Write a KVData entry into batch lane ``lane`` of a cache tree, in
-    place: attention K/V into slots [0, n_kept), a mamba layer's state and
-    conv window whole (the reference's ``put_full``). Returns n_kept."""
+    place: an attention layer's rows into slots [0, n_kept), a mamba
+    layer's state and conv window whole (the reference's ``put_full``).
+    Returns n_kept."""
+    names = _attn_names(cfg)
     n_kept = int(kv["positions"].shape[0]) if "positions" in kv else (
-        kv["k"].shape[1] if "k" in kv else 0)
-    hd = cfg.resolved_head_dim
+        kv[names[0]].shape[1] if names[0] in kv else 0)
     dev = {name: torch.from_numpy(np.ascontiguousarray(kv[name])).to(device)
-           for name in ("k", "v", "ssm", "conv") if name in kv}
+           for name in names + ("ssm", "conv") if name in kv}
     ai = mi = 0
     for _, kind, (sect, j, g) in _layer_cache_refs(cache, cfg):
         blk = cache[sect][j]
         if kind == LayerKind.MAMBA:
-            blk["mamba"]["ssm"][g, lane] = dev["ssm"][mi]
-            blk["mamba"]["conv"][g, lane] = dev["conv"][mi]
+            _at(blk["mamba"]["ssm"], g)[lane] = dev["ssm"][mi]
+            _at(blk["mamba"]["conv"], g)[lane] = dev["conv"][mi]
             mi += 1
         else:
-            blk["self"]["k"][g, lane, :n_kept] = dev["k"][ai].reshape(
-                n_kept, -1, hd)
-            blk["self"]["v"][g, lane, :n_kept] = dev["v"][ai].reshape(
-                n_kept, -1, hd)
+            for name in names:
+                dst = _at(blk["self"][name], g)[lane, :n_kept]
+                dst.copy_(dev[name][ai].reshape(dst.shape))
             ai += 1
     return n_kept
 

@@ -114,25 +114,27 @@ def test_batcher_ticks_match(runners):
 
 PAGED_FUSED = dict(page_tokens=32, chunk_tokens=16, fused_compute=True,
                    fused_residual_frac=0.37)
-# keys that carry a model float in paged mode: composed_quality_mean
-# scores each page run through redundancy_feature, an SVD of the f32 K
-# values (core/estimator.py), which the two frameworks round differently
+# keys that carry a model float: composed_quality_mean scores each entry
+# (each page run, in paged mode) through redundancy_feature, an SVD of the
+# f32 K values (core/estimator.py), which the two frameworks round
+# differently
 MODEL_FLOAT_KEYS = ("composed_quality_mean",)
 
 
-@pytest.mark.parametrize("policy,engine_kw", [
-    (("kivi", 0.16), {}), ("adaptive", {}), (("kivi", 0.16), PAGED_FUSED)],
-    ids=["policy0", "adaptive", "kivi_paged_fused"])
-def test_engine_summary_equal(runners, policy, engine_kw, tmp_path):
-    cfg, jr, tr = runners
+def summaries_equal(jr, tr, arch: str, n_active: int, policy, engine_kw,
+                    tmp_path, float_keys=()) -> dict:
+    """One context, 8 s of Poisson requests, served by both packages'
+    ``build_engine`` on the runners' shared weights: answers equal, hits,
+    and the ``summarize`` dicts equal, the ``float_keys`` within rel 1e-6.
+    Returns the port's summary."""
     out = []
     for runner, build, summ, sub in ((jr, jbuild_engine, jsummarize, "j"),
                                      (tr, tbuild_engine, tsummarize, "t")):
         rng = np.random.RandomState(0)
-        contexts = make_contexts(rng, cfg.vocab_size, 1, min_len=64,
-                                 max_len=128, n_probes=1)
+        contexts = make_contexts(rng, runner.model.cfg.vocab_size, 1,
+                                 min_len=64, max_len=128, n_probes=1)
         reqs = poisson_requests(rng, contexts, rate_hz=1.0, duration_s=8)
-        rig = build(runner, contexts, jget("adaptcache-8b"), 8_030_000_000,
+        rig = build(runner, contexts, jget(arch), n_active,
                     policy=policy, dram_entries=1.5, ssd_entries=4.0,
                     ssd_root=str(tmp_path / sub), **engine_kw)
         res = rig.engine.process(reqs)
@@ -142,11 +144,23 @@ def test_engine_summary_equal(runners, policy, engine_kw, tmp_path):
     assert tans == jans
     assert ts["n"] == len(jans) and ts["hit_rate"] > 0
     assert sorted(ts) == sorted(js)
+    ts, js = dict(ts), dict(js)
+    for key in float_keys:
+        assert ts.pop(key) == pytest.approx(js.pop(key), rel=1e-6), key
+    assert ts == js
+    return ts
+
+
+@pytest.mark.parametrize("policy,engine_kw", [
+    (("kivi", 0.16), {}), ("adaptive", {}), (("kivi", 0.16), PAGED_FUSED)],
+    ids=["policy0", "adaptive", "kivi_paged_fused"])
+def test_engine_summary_equal(runners, policy, engine_kw, tmp_path):
+    cfg, jr, tr = runners
+    ts = summaries_equal(jr, tr, "adaptcache-8b", 8_030_000_000, policy,
+                         engine_kw, tmp_path,
+                         MODEL_FLOAT_KEYS if engine_kw else ())
     if engine_kw:                        # paged, chunked, fused pricing
         assert ts["partial_hit_rate"] > 0 and ts["pages_hit_mean"] > 0
-        for key in MODEL_FLOAT_KEYS:
-            assert ts.pop(key) == pytest.approx(js.pop(key), rel=1e-6), key
-    assert ts == js
 
 
 def _flags(path: Path):
@@ -180,6 +194,25 @@ def test_serve_driver_flags_and_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.main(["--duration", "1"])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b",
+                                  "jamba-1.5-large-398b"])
+def test_serve_driver_runs_moe_and_mla(arch):
+    """The serve driver trains the MoE smoke models (capacity dropping and
+    the balance loss in the loss), then serves them through the KIVI
+    policy on the CPU; jamba, which no card holds at full width, too."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tserve.main(["--device", "cpu", "--arch", arch,
+                          "--train-steps", "2", "--duration", "6", "--rate",
+                          "1", "--contexts-per-task", "1", "--policy",
+                          "kivi:0.16", "--lanes", "1"])
+    assert rc == 0
+    text = buf.getvalue()
+    assert re.search(r"smoke model trained 2 steps, final loss \d+\.\d+",
+                     text)
+    assert "=== serving summary ===" in text and "hit_rate" in text
 
 
 def test_train_steps_0_serves_the_seeded_init():

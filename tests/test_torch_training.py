@@ -350,7 +350,7 @@ def test_forward_and_chunked_loss(pairs, batch):
             float(jce(jlogits, jnp.asarray(batch["labels"]))), rel=LOSS_RTOL)
         from repro_torch.models import transformer
         for chunk in (16, 40):
-            x = transformer._train_stack(
+            x, _ = transformer._train_stack(
                 tp, tm.cfg, transformer.embed_inputs(tp, tm.cfg, tb),
                 transformer._positions(logits), remat=False)
             got = transformer.chunked_ce_loss(tp, tm.cfg, x, tb["labels"],
@@ -637,6 +637,24 @@ def test_train_driver_trains_mamba(tmp_path):
                               "--steps", "2", "--ckpt-every", "2",
                               "--batch", "2", "--seq", "64", "--ckpt-dir",
                               str(tmp_path), "--device", "cpu"])
+    assert "step     0 loss" in buf.getvalue()
+    assert int(state.opt.step) == 2
+    assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_2"]
+    assert all(torch.isfinite(t).all() for t in tree_lib.leaves(state))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b",
+                                  "jamba-1.5-large-398b"])
+def test_train_driver_trains_moe_and_mla(tmp_path, arch):
+    """The train driver takes the MoE smoke configs (deepseek's with MLA
+    and its dense prefix layer, jamba's Mamba and attention layers) on the
+    CPU and checkpoints them."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = ttrain.train(["--arch", arch, "--smoke", "--steps", "2",
+                              "--ckpt-every", "2", "--batch", "2", "--seq",
+                              "64", "--ckpt-dir", str(tmp_path), "--device",
+                              "cpu"])
     assert "step     0 loss" in buf.getvalue()
     assert int(state.opt.step) == 2
     assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_2"]
