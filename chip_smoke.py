@@ -172,15 +172,41 @@ stops the run with a non-zero exit when it fails:
              features only: the ``_cols`` kernels (the ``_v`` counters)
              must launch, and the ``_rows`` ones (``_k``) must count
              exactly 0, which the check says.
+10. vlm    — the same for full-width internvl2-1b (24 layers, d_model
+             896, GQA 14 over 2 heads, 494,556,160 params; no MoE, so no
+             expert fields or routing gaps), served text-only as the
+             reference serves it: both KIVI forms launch. Then, on the
+             bf16 model (printed) and on the same seed's f32 model (held):
+             256 seeded patch embeddings in front of 63 tokens, the decode
+             step at slot 256 + 63 against the prefill of 256 + 64 within
+             1e-4; and the packed-uint8 quantized decode cache (eager
+             torch, no kernel): 64 tokens decoded one by one at 8, 4 and 2
+             bits against the exact decode of the 64th, 8 bits within 0.02
+             and the error monotone in bits, the 4-bit leaf uint8 of width
+             hd/2, a decode step's time at each width.
+11. encdec — full-width seamless-m4t-large-v2 (24 encoder + 24 decoder
+             layers, d_model 1024, 2,034,784,256 params, bf16) through the
+             model's entry points (neither serve driver can serve it):
+             seeded stub frames (1, 1024, 1024), phase 3's first context
+             (556 tokens), capacity 1024. ``encode``, the prefill and 32
+             decode steps timed with CUDA events, one decode step
+             profiled, the cross cache's shape and bytes printed; the
+             decoder's entry (``cache_to_kvdata``: K and V of (24, 556,
+             1024), the cross cache dropped, as the reference drops it)
+             through the KIVI kernels bit-equal to the plain version,
+             every form launched; the decode step against the prefill
+             over the frames in bf16 (printed) and in f32 (the same seed's
+             f32 init, held within 1e-4).
 
 The line before the last is the ``kernels`` JSON line (eleven entries,
 each with its own kernel's launches: phase 3's for KIVI, phase 4's for the
 attention kernels, flash_attention's f32 tensor-core, bf16 tensor-core
 and CUDA-core kernels as three entries, phase 5's for the scan, phase 7's
-counted step for ``selective_scan_bwd``), and the four
+counted step for ``selective_scan_bwd``), and the six
 before it phase 6's ``training``, phase 7's ``mamba_training``, phase 8's
-``moe_serving`` and phase 9's ``mla_serving`` summaries (launches, wall
-times, idle shares); the last line is
+``moe_serving``, phase 9's ``mla_serving``, phase 10's ``vlm_serving`` and
+phase 11's ``encdec`` summaries (launches, wall times, idle shares); the
+last line is
 ``{"ok": true, "device": {...}}``. Measurements also go to
 ``chiprun_out/chip_smoke.json``.
 The measured fused calibration goes beside it (``fused_calibration.json``).
@@ -223,6 +249,8 @@ DEQUANT_OPS = 5              # shift, and, convert, fma (2)
 MAMBA_ARCH = "falcon-mamba-7b"
 MOE_ARCH = "olmoe-1b-7b"               # phase 8: MoE, GQA
 MLA_ARCH = "deepseek-v2-lite-16b"      # phase 9: MLA, MoE, a dense prefix
+VLM_ARCH = "internvl2-1b"              # phase 10: patches, GQA 14 / 2
+ENCDEC_ARCH = "seamless-m4t-large-v2"  # phase 11: encoder-decoder
 HOST_RANGES = ("moe_dispatch",)        # the port's record_function ranges
 REPLACES = {"quantize": "src/repro/kernels/kivi/kernel.py:71",
             "dequantize": "src/repro/kernels/kivi/kernel.py:99",
@@ -1340,14 +1368,26 @@ def phase_fused(attn_kernels, summary3, serving):
             "wall_s": wall_s}
 
 
-def decode_vs_prefill(model, params, tokens) -> float:
+def decode_vs_prefill(model, params, tokens, extra=None, capacity: int = 128,
+                      slot: int = 63) -> float:
     """Max relative error of the decode step's logits on the last of 64
     tokens (from the prefill of the first 63) against the prefill of all
-    64; infinite when the decode step gives a non-finite value."""
+    64; infinite when the decode step gives a non-finite value. ``extra``
+    holds the batch's other inputs (frames, patches) for both prefills,
+    ``slot`` the decode step's cache slot (63, after any patches)."""
+    extra = extra or {}
     toks = torch.as_tensor(tokens[:64], device="cuda")[None]
-    want, _ = model.prefill(params, {"tokens": toks}, capacity=128)
-    _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, capacity=128)
-    got, _ = model.decode_step(params, cache, 63, toks[:, -1:])
+    want, _ = model.prefill(params, {"tokens": toks, **extra},
+                            capacity=capacity)
+    _, cache = model.prefill(params, {"tokens": toks[:, :-1], **extra},
+                             capacity=capacity)
+    got, _ = model.decode_step(params, cache, slot, toks[:, -1:])
+    return rel_err(got, want)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| over the last position's logits;
+    infinite when ``got`` holds a non-finite value."""
     want, got = want.float()[0, -1], got.float()[0, -1]
     if not bool(torch.isfinite(got).all()):
         return math.inf
@@ -1788,7 +1828,7 @@ def routing_gaps(fn):
         moe_lib.router_topk = plain
 
 
-def phase_family_serving(arch: str, label: str) -> dict:
+def phase_family_serving(arch: str, label: str, checks=None) -> dict:
     """Full-width ``arch`` (bf16, seeded) served through ``build_engine``
     with the fixed KIVI policy, its KIVI launches counted by form
     (``check_kivi_launches``) and one request profiled; a real prefill
@@ -1796,7 +1836,11 @@ def phase_family_serving(arch: str, label: str) -> dict:
     decode step against the prefill in bf16 (printed) and in f32 (held to
     DECODE_TOL_F32). The f32 model is the same seed's init in f32, the bf16
     weights before their rounding, at full depth: it is built after the
-    bf16 model is freed (deepseek-v2-lite's would not fit beside it)."""
+    bf16 model is freed (deepseek-v2-lite's would not fit beside it). A
+    MoE config's routing gaps are printed beside the f32 check.
+    ``checks(model, params, tokens, hold)``, when given, runs on the bf16
+    model (``hold`` False: print) and on the f32 one (``hold`` True: fail
+    on a miss); its two results land under ``checks``."""
     from repro_torch.configs import get_config
     from repro_torch.core.compression import KIVICompression
     from repro_torch.models import build_model
@@ -1813,18 +1857,20 @@ def phase_family_serving(arch: str, label: str) -> dict:
     m = cfg.moe
     attn = (f"MLA r {cfg.mla.kv_lora_rank}, rope {cfg.mla.qk_rope_head_dim}"
             if cfg.mla else f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads")
-    print(f"  {arch}: {cfg.n_layers} layers ({m.first_k_dense} dense "
-          f"prefix), d_model {cfg.d_model}, {attn}, {m.n_routed_experts} "
-          f"routed + {m.n_shared_experts} shared experts top-{m.top_k} of "
-          f"width {m.expert_d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.param_dtype}: {n_params:,} params ({n_active:,} active), "
+    ffn = (f"{m.n_routed_experts} routed + {m.n_shared_experts} shared "
+           f"experts top-{m.top_k} of width {m.expert_d_ff}" if m else
+           f"d_ff {cfg.d_ff}")
+    prefix = f" ({m.first_k_dense} dense prefix)" if m else ""
+    print(f"  {arch}: {cfg.n_layers} layers{prefix}, d_model {cfg.d_model}, "
+          f"{attn}, {ffn}, vocab {cfg.vocab_size}, {cfg.param_dtype}: "
+          f"{n_params:,} params ({n_active:,} active), "
           f"init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
     runner = ModelRunner(model, params, capacity=1024)
     torch.cuda.reset_peak_memory_stats()
     summary, _, _, contexts, wall_s, launches, prof = serve(
         runner, cfg, n_active, profile_label=label,
-        profile_shares=("kivi", "moe_dispatch"))
+        profile_shares=("kivi", "moe_dispatch") if m else ("kivi",))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print("  summary (TTFT is simulated on the reference's A100 TimeModel, "
           "not measured on this card):")
@@ -1832,10 +1878,11 @@ def phase_family_serving(arch: str, label: str) -> dict:
         print(f"    {k:28s} {v}")
     print(f"  kernel launches during engine.process: {launches}; peak "
           f"memory {peak_gb:.2f} GB")
-    print(f"    moe_dispatch host time {prof['moe_dispatch_host_ms']:.3f} ms "
-          f"in {prof['moe_dispatch_calls']} calls, "
-          f"{100 * prof['moe_dispatch_host_ms'] / prof['window_ms']:.2f} % "
-          "of the window")
+    if m:
+        print(f"    moe_dispatch host time {prof['moe_dispatch_host_ms']:.3f} "
+              f"ms in {prof['moe_dispatch_calls']} calls, "
+              f"{100 * prof['moe_dispatch_host_ms'] / prof['window_ms']:.2f} "
+              "% of the window")
 
     # a real prefill entry through the kernel == the plain version's bytes
     ctx = contexts[0]
@@ -1864,6 +1911,9 @@ def phase_family_serving(arch: str, label: str) -> dict:
           f"({on_card.meta['bits']} bits, rate {on_card.rate:.4f})")
 
     rel16 = decode_vs_prefill(model, params, ctx.tokens)
+    checked = {}
+    if checks:
+        checked["bf16"] = checks(model, params, ctx.tokens, False)
     del runner, params, kv, on_card, on_cpu, back_card, back_cpu
     gc.collect()
     torch.cuda.empty_cache()
@@ -1872,34 +1922,233 @@ def phase_family_serving(arch: str, label: str) -> dict:
     params32 = model32.init(seed=0, device="cuda")
     print(f"  f32 model (the same seed): "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
-    rel32, gaps = routing_gaps(
-        lambda: decode_vs_prefill(model32, params32, ctx.tokens))
+    f32_check = lambda: decode_vs_prefill(model32, params32, ctx.tokens)
+    rel32, gaps = routing_gaps(f32_check) if m else (f32_check(), None)
+    if checks:
+        checked["f32"] = checks(model32, params32, ctx.tokens, True)
     del params32
     gc.collect()
     torch.cuda.empty_cache()
-    n_moe = sum(cfg.uses_moe_at(i) for i in range(cfg.n_layers))
-    low = min(range(len(gaps)), key=gaps.__getitem__)
-    gap = (f"smallest routing gap {gaps[low]:.3g} (k-th against (k+1)-th "
-           f"router probability of the last token, MoE layer "
-           f"{low % n_moe} of {n_moe})")
+    gap = ""
+    if m:
+        n_moe = sum(cfg.uses_moe_at(i) for i in range(cfg.n_layers))
+        low = min(range(len(gaps)), key=gaps.__getitem__)
+        gap = (f"; smallest routing gap {gaps[low]:.3g} (k-th against "
+               f"(k+1)-th router probability of the last token, MoE layer "
+               f"{low % n_moe} of {n_moe})")
     if not rel32 < DECODE_TOL_F32:
         fail(f"decode step disagrees with prefill in f32: max rel err "
-             f"{rel32:.3g} (limit {DECODE_TOL_F32:g}); {gap}")
+             f"{rel32:.3g} (limit {DECODE_TOL_F32:g}){gap}")
     print(f"  decode step vs prefill logits: f32 max rel err {rel32:.3g}, "
-          f"within {DECODE_TOL_F32:g} ({gap}); bf16 {rel16:.3g} (printed: "
-          "a near tie in bf16 routing may pick another expert)")
-    return {"arch": arch, "n_params": n_params, "n_active": n_active,
-            "summary": summary, "launches": launches, "kivi_forms": forms,
-            "wall_s": wall_s, "peak_memory_gb": peak_gb,
-            "entry_shapes": shapes, "decode_rel_err_f32": rel32,
-            "decode_rel_err_bf16": rel16, "routing_gap_min": gaps[low],
+          f"within {DECODE_TOL_F32:g}{gap}; bf16 {rel16:.3g} (printed"
+          + (": a near tie in bf16 routing may pick another expert)" if m
+             else ")"))
+    out = {"arch": arch, "n_params": n_params, "n_active": n_active,
+           "summary": summary, "launches": launches, "kivi_forms": forms,
+           "wall_s": wall_s, "peak_memory_gb": peak_gb,
+           "entry_shapes": shapes, "decode_rel_err_f32": rel32,
+           "decode_rel_err_bf16": rel16, "profile": prof, "checks": checked}
+    if m:
+        out["routing_gap_min"] = min(gaps)
+    return out
+
+
+def vlm_checks(model, params, tokens, hold: bool) -> dict:
+    """The vision input and the packed quantized decode cache (A10) of a
+    VLM on the card. (b) 256 seeded patch embeddings (N(0, 1) x 0.1) in
+    front of 63 tokens: the decode step at slot 256 + 63 against the
+    prefill of 256 + 64. (c) the 64 tokens decoded one by one into the
+    packed cache at 8, 4 and 2 bits against the exact decode of the 64th
+    (after the prefill of 63): the reference test's bounds (8 bits within
+    0.02, the error monotone in bits), the cache uint8 of width hd/2 at 4
+    bits, and one decode step's time at each width (CUDA events). With
+    ``hold`` (the f32 model) a miss fails the run; otherwise the numbers
+    are printed."""
+    cfg, tag = model.cfg, "f32" if hold else "bf16"
+    n = cfg.n_patches
+    rng = np.random.RandomState(0)
+    patches = torch.from_numpy((rng.randn(1, n, cfg.d_model) * 0.1).astype(
+        np.float32)).to("cuda")
+    rel_patch = decode_vs_prefill(model, params, tokens,
+                                  {"patch_embeds": patches},
+                                  capacity=n + 128, slot=n + 63)
+    if hold and not rel_patch < DECODE_TOL_F32:
+        fail(f"{n} patches + 64 tokens: decode step disagrees with prefill "
+             f"in {tag}: max rel err {rel_patch:.3g} (limit "
+             f"{DECODE_TOL_F32:g})")
+    print(f"  {tag}: {n} patches + 64 tokens, decode at slot {n + 63} vs "
+          f"prefill: max rel err {rel_patch:.3g}"
+          + (f", within {DECODE_TOL_F32:g}" if hold else " (printed)"))
+
+    toks = torch.as_tensor(tokens[:64], device="cuda")[None]
+    _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, capacity=128)
+    exact, _ = model.decode_step(params, cache, 63, toks[:, -1:])
+    step = lambda c, slot: model.decode_step(params, c, slot, toks[:, -1:])
+    times = {16: time_ms(lambda: step(cache, 64), 10)}
+    errs = {}
+    for bits in (8, 4, 2):
+        qc = model.init_cache(batch=1, capacity=128, device="cuda",
+                              kv_bits=bits)
+        for t in range(64):
+            logits, qc = model.decode_step(params, qc, t, toks[:, t:t + 1])
+        errs[bits] = rel_err(logits, exact)
+        times[bits] = time_ms(lambda: step(qc, 64), 10)
+    leaf = model.init_cache(batch=1, capacity=8, device="cuda",
+                            kv_bits=4)["stack"][0]["self"]["k_packed"]
+    shape_ok = (leaf.dtype == torch.uint8
+                and leaf.shape[-1] == cfg.resolved_head_dim // 2)
+    ok = errs[8] < 0.02 and errs[8] <= errs[4] <= errs[2] and shape_ok
+    if hold and not ok:
+        fail(f"quantized decode cache in {tag}: rel errors {errs} (want 8 "
+             f"bits < 0.02, monotone in bits), 4-bit leaf {leaf.dtype} "
+             f"{tuple(leaf.shape)}")
+    print(f"  {tag}: packed quantized decode of the 64th token against the "
+          f"exact decode: max rel err 8 bits {errs[8]:.4g}, 4 bits "
+          f"{errs[4]:.4g}, 2 bits {errs[2]:.4g}"
+          + (" (within 0.02 at 8 bits, monotone)" if hold else
+             f" ({'within' if ok else 'outside'} the f32 bounds)")
+          + f"; 4-bit leaf {leaf.dtype} {tuple(leaf.shape)}; a decode step "
+          f"at slot 64: exact {times[16]:.3f} ms, 8 bits {times[8]:.3f}, "
+          f"4 bits {times[4]:.3f}, 2 bits {times[2]:.3f} ms")
+    return {"patch_decode_rel_err": rel_patch, "quantized_rel_err": errs,
+            "decode_step_ms": times}
+
+
+def phase_encdec() -> dict:
+    """Full-width seamless-m4t-large-v2 (bf16, seeded) through the model's
+    own entry points, as neither serve driver can serve it (ROADMAP C):
+    seeded stub frames (1, 1024, 1024), the 556-token first context of
+    phase 3's workload, capacity 1024. ``encode``, the prefill (the
+    encoder included) and 32 decode steps each timed with CUDA events; one
+    decode step profiled; the prefill's decoder entry through
+    ``cache_to_kvdata`` (the cross cache dropped, as the reference drops
+    it) and the KIVI kernels, bit-equal to the plain version, each form
+    launched; the decode step against the prefill in bf16 (printed) and
+    in f32 (the same seed's f32 init, built after the bf16 model is freed;
+    held to DECODE_TOL_F32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import KIVICompression
+    from repro_torch.kernels.kivi import kernel as kivi_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer
+    from repro_torch.serving.runner import cache_to_kvdata
+    from repro_torch.serving.workload import make_contexts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    print(f"  {ENCDEC_ARCH}: {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}: {n_params:,} params, init "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    rng = np.random.RandomState(0)
+    ctx = make_contexts(rng, cfg.vocab_size, 1, min_len=384, max_len=640,
+                        n_probes=2)[0]
+    frames = torch.from_numpy((np.random.RandomState(0).randn(
+        1, cfg.n_frames, cfg.d_model) * 0.1).astype(np.float32)).to("cuda")
+    toks = torch.as_tensor(ctx.tokens, device="cuda")[None]
+    n = toks.shape[1]
+    batch = {"tokens": toks, "frames": frames}
+    enc_ms = time_ms(lambda: transformer.encode(params, cfg, frames), 5)
+    prefill_ms = time_ms(lambda: model.prefill(params, batch, capacity=1024),
+                         3)
+    logits, cache = model.prefill(params, batch, capacity=1024)
+    cross = cache["stack"][0]["cross"]["k"]
+    cross_bytes = 2 * cross.numel() * cross.element_size()
+    step_ms, nxt = [], torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for i in range(32):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = model.decode_step(params, cache, n + i, nxt)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    if not bool(torch.isfinite(logits).all()):
+        fail("seamless decode gave non-finite logits")
+    print(f"  encode of {cfg.n_frames} frames {enc_ms:.3f} ms, prefill of "
+          f"{n} tokens (the encoder included) {prefill_ms:.3f} ms, 32 decode "
+          f"steps median {np.median(step_ms):.3f} ms (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}); cross cache K "
+          f"and V of {tuple(cross.shape)} each (layers, batch, frames, KV "
+          f"heads, hd), {cross_bytes / 1e6:.1f} MB")
+    prof, _ = profile_call(lambda: model.decode_step(params, cache, n + 32,
+                                                     nxt),
+                           "one seamless decode step", ())
+
+    # the decoder's entry, as the runner extracts it (the prefill's rows
+    # [0, n), which the decode steps after them left as they were),
+    # through the kernel
+    kv = cache_to_kvdata(cache, cfg, n)
+    names = tuple(k for k in kv if k != "positions")
+    want = (cfg.n_layers, n, cfg.n_kv_heads * cfg.resolved_head_dim)
+    if names != ("k", "v") or any(kv[k].shape != want for k in names):
+        fail(f"seamless KVData {[(k, kv[k].shape) for k in names]}: want k "
+             f"and v of {want}, the cross cache dropped")
+    card, cpu = KIVICompression(device="cuda"), KIVICompression(device="cpu")
+    for k in kivi_kernel.LAUNCHES:
+        kivi_kernel.LAUNCHES[k] = 0
+    on_card = card.compress(kv, RATE)
+    back_card = card.decompress(on_card)
+    launches = dict(kivi_kernel.LAUNCHES)
+    on_cpu = cpu.compress(kv, RATE)
+    back_cpu = cpu.decompress(on_cpu)
+    for key, a in on_card.arrays.items():
+        if not np.array_equal(a, on_cpu.arrays[key]):
+            fail(f"compress of the seamless entry: {key} differs between "
+                 "the kernel and the plain version")
+    for name in names:
+        if not np.array_equal(back_card[name], back_cpu[name]):
+            fail(f"decompress of the seamless entry: {name} differs between "
+                 "the kernel and the plain version")
+    idle = [k for k in ("quantize_k", "quantize_v", "dequantize_k",
+                        "dequantize_v") if launches[k] <= 0]
+    if idle:
+        fail(f"the seamless entry's round trip never launched {idle}")
+    print(f"  decoder entry {want} K and V: compress and decompress "
+          f"bit-equal to the plain version ({on_card.meta['bits']} bits); "
+          f"KIVI launches {launches}")
+
+    rel16 = decode_vs_prefill(model, params, ctx.tokens, {"frames": frames})
+    del params, cache, kv, on_card, on_cpu, back_card, back_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(seed=0, device="cuda")
+    print(f"  f32 model (the same seed): "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    rel32 = decode_vs_prefill(model32, params32, ctx.tokens,
+                              {"frames": frames})
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not rel32 < DECODE_TOL_F32:
+        fail(f"seamless decode step disagrees with prefill in f32: max rel "
+             f"err {rel32:.3g} (limit {DECODE_TOL_F32:g})")
+    print(f"  decode step vs prefill logits (64 tokens over the frames): "
+          f"f32 max rel err {rel32:.3g}, within {DECODE_TOL_F32:g}; bf16 "
+          f"{rel16:.3g} (printed)")
+    return {"arch": ENCDEC_ARCH, "n_params": n_params, "tokens": n,
+            "encode_ms": enc_ms, "prefill_ms": prefill_ms,
+            "decode_step_ms": step_ms, "cross_shape": tuple(cross.shape),
+            "cross_bytes": cross_bytes, "launches": launches,
+            "decode_rel_err_f32": rel32, "decode_rel_err_bf16": rel16,
             "profile": prof}
 
 
 def family_line(out: dict, card: str) -> dict:
-    """The one-line summary of phase 8 or 9."""
+    """The one-line summary of phase 8, 9 or 10."""
     prof = out["profile"]
-    return {"card": card, "arch": out["arch"], "n_params": out["n_params"],
+    line = {"card": card, "arch": out["arch"], "n_params": out["n_params"],
             "launches": out["launches"], "engine_wall_s": out["wall_s"],
             "peak_memory_gb": out["peak_memory_gb"],
             "hit_rate": out["summary"]["hit_rate"],
@@ -1907,10 +2156,30 @@ def family_line(out: dict, card: str) -> dict:
             "decode_rel_err_bf16": out["decode_rel_err_bf16"],
             "profile_idle_share": prof["idle_share"],
             "profile_busy_ms": prof["busy_ms"],
-            "profile_window_ms": prof["window_ms"],
-            "profile_moe_dispatch_ms": prof["moe_dispatch_ms"],
-            "profile_moe_dispatch_host_ms": prof["moe_dispatch_host_ms"],
-            "profile_top3": [op["name"][:60] for op in prof["top"][:3]]}
+            "profile_window_ms": prof["window_ms"]}
+    if "routing_gap_min" in out:
+        line["profile_moe_dispatch_ms"] = prof["moe_dispatch_ms"]
+        line["profile_moe_dispatch_host_ms"] = prof["moe_dispatch_host_ms"]
+    for tag, checked in out["checks"].items():
+        line[f"patch_decode_rel_err_{tag}"] = checked["patch_decode_rel_err"]
+        line[f"quantized_rel_err_{tag}"] = checked["quantized_rel_err"]
+        line[f"quantized_step_ms_{tag}"] = checked["decode_step_ms"]
+    line["profile_top3"] = [op["name"][:60] for op in prof["top"][:3]]
+    return line
+
+
+def encdec_line(out: dict, card: str) -> dict:
+    """The one-line summary of phase 11."""
+    prof = out["profile"]
+    return {"card": card, **{k: out[k] for k in (
+        "arch", "n_params", "tokens", "encode_ms", "prefill_ms",
+        "cross_shape", "cross_bytes", "launches", "decode_rel_err_f32",
+        "decode_rel_err_bf16")},
+        "decode_step_ms_median": float(np.median(out["decode_step_ms"])),
+        "profile_idle_share": prof["idle_share"],
+        "profile_busy_ms": prof["busy_ms"],
+        "profile_window_ms": prof["window_ms"],
+        "profile_top3": [op["name"][:60] for op in prof["top"][:3]]}
 
 
 def main() -> int:
@@ -1943,7 +2212,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    print(f"[1/9] build ({elapsed()})")
+    print(f"[1/11] build ({elapsed()})")
     attn_kernels = {"decode_attn": decode_kernel,
                     "fused_prefill": fused_kernel,
                     "flash_attention": flash_kernel}
@@ -1960,7 +2229,7 @@ def main() -> int:
         for kname, usage in ptxas_usage(log):
             print(f"    ptxas {kname}: {usage}")
 
-    print(f"[2/9] kernels against the plain version ({elapsed()})")
+    print(f"[2/11] kernels against the plain version ({elapsed()})")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
     phase_kivi_layouts(kernel, ref)
     timed_rows = {
@@ -1976,15 +2245,15 @@ def main() -> int:
     decode_layouts_err = phase_decode_layouts(decode_ops, decode_ref,
                                               decode_kernel)
 
-    print(f"[3/9] serving full-width adaptcache-8b through build_engine "
+    print(f"[3/11] serving full-width adaptcache-8b through build_engine "
           f"({elapsed()})")
     summary, launches, wall_s, serving, profile3 = phase_serving()
 
-    print(f"[4/9] fused compute: kernel_bench calibration, then serving "
+    print(f"[4/11] fused compute: kernel_bench calibration, then serving "
           f"priced with it ({elapsed()})")
     fused = phase_fused(attn_kernels, summary, serving)
 
-    print(f"[5/9] serving full-width falcon-mamba-7b through build_engine "
+    print(f"[5/11] serving full-width falcon-mamba-7b through build_engine "
           f"({elapsed()})")
     del serving                            # free adaptcache-8b's weights
     gc.collect()
@@ -1993,21 +2262,29 @@ def main() -> int:
           "GB left on the card")
     mamba = phase_mamba(scan_kernel)
 
-    print(f"[6/9] training: the card against the CPU, the train driver's "
+    print(f"[6/11] training: the card against the CPU, the train driver's "
           f"resume, full-width adaptcache-8b ({elapsed()})")
     training = phase_training(smi)
 
-    print(f"[7/9] Mamba training: the card against the CPU, the serve "
+    print(f"[7/11] Mamba training: the card against the CPU, the serve "
           f"driver's training, full-width falcon-mamba-7b ({elapsed()})")
     mamba_training = phase_mamba_training(smi, scan_kernel)
 
-    print(f"[8/9] MoE serving: full-width {MOE_ARCH} through build_engine "
+    print(f"[8/11] MoE serving: full-width {MOE_ARCH} through build_engine "
           f"({elapsed()})")
     moe_serving = phase_family_serving(MOE_ARCH, "phase-8")
 
-    print(f"[9/9] MLA serving: full-width {MLA_ARCH} through build_engine "
+    print(f"[9/11] MLA serving: full-width {MLA_ARCH} through build_engine "
           f"({elapsed()})")
     mla_serving = phase_family_serving(MLA_ARCH, "phase-9")
+
+    print(f"[10/11] VLM serving: full-width {VLM_ARCH} through build_engine, "
+          f"its patches and the packed quantized decode cache ({elapsed()})")
+    vlm_serving = phase_family_serving(VLM_ARCH, "phase-10", vlm_checks)
+
+    print(f"[11/11] encoder-decoder: full-width {ENCDEC_ARCH}'s encode, "
+          f"prefill and decode ({elapsed()})")
+    encdec = phase_encdec()
     print(f"  all phases passed ({elapsed()})")
 
     entries = []
@@ -2078,7 +2355,8 @@ def main() -> int:
         "engine_wall_s": wall_s, "profile_phase3": profile3,
         "fused": fused, "mamba": mamba, "training": training,
         "mamba_training": mamba_training, "moe_serving": moe_serving,
-        "mla_serving": mla_serving, "elapsed_s": time.perf_counter() - T_START},
+        "mla_serving": mla_serving, "vlm_serving": vlm_serving,
+        "encdec": encdec, "elapsed_s": time.perf_counter() - T_START},
         indent=1, default=float))
     (out_dir / "fused_calibration.json").write_text(
         json.dumps(fused["calibration"], indent=2))
@@ -2121,6 +2399,8 @@ def main() -> int:
                          mfull["profile"]["top"][:3]]}}))
     print(json.dumps({"moe_serving": family_line(moe_serving, smi)}))
     print(json.dumps({"mla_serving": family_line(mla_serving, smi)}))
+    print(json.dumps({"vlm_serving": family_line(vlm_serving, smi)}))
+    print(json.dumps({"encdec": encdec_line(encdec, smi)}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

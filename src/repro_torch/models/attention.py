@@ -1,18 +1,26 @@
-"""Attention: dense grouped-query attention (with qk-norm and partial rope)
-and MLA (DeepSeek's multi-head latent attention).
+"""Attention: dense grouped-query attention (with qk-norm and partial rope),
+MLA (DeepSeek's multi-head latent attention), cross-attention over an
+encoder's memory, and one-token decode over a packed-uint8 quantized cache.
 
-Counterpart of ``repro.models.attention`` (all but the quantized decode
-cache, ROADMAP §A10). Two entry modes, chosen by shape as in the reference:
+Counterpart of ``repro.models.attention``. Two entry modes, chosen by
+shape as in the reference:
   * full   — S tokens, causal mask; returns the S-token cache rows it
     produced;
   * decode — S == 1 with a cache and ``cur_index``: writes the new row at
     ``cur_index`` (scalar, or one slot per batch lane) and attends over
     the whole fixed-capacity cache with the visibility mask.
+``kv_source`` (the encoder's output, (B, T, d)) selects cross-attention:
+K and V from ``kv_source`` or, when given, from the cache, only q's norm,
+no RoPE and no mask; an MLA config takes the GQA form there too.
 
 Cache layouts:
   GQA: {"k": (B, C, n_kv, hd), "v": (B, C, n_kv, hd)}
   MLA: {"ckv": (B, C, r), "krope": (B, C, rope_dim)} — the compressed
        latent, which AdaptCache's storage tier compresses further.
+  quantized GQA (b bits, cpb = 8 // b codes a byte, packed along hd, low
+       bits first): {"k_packed": (B, C, n_kv, hd/cpb) uint8,
+       "k_scale"/"k_zero": (B, C, n_kv, 1) f32, "v_packed", "v_scale",
+       "v_zero"} — each token quantized on write, per token and head.
 MLA's full mode decompresses the latent into per-head K and V; its decode
 uses the absorbed form (q folded through W_uk, the output through W_uv),
 O(S·r) a head.
@@ -37,11 +45,13 @@ NEG_INF = -1e30
 Index = Union[int, torch.Tensor]
 
 
-def param_shapes(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Params:
+def param_shapes(cfg: ModelConfig, lead: Tuple[int, ...] = (),
+                 cross: bool = False) -> Params:
     """The layer's parameter shapes, with ``lead`` (the stacked layer
-    groups) in front of each."""
+    groups) in front of each. Cross-attention (``cross``) takes the GQA
+    shapes whatever the config's attention kind."""
     d, h, lead = cfg.d_model, cfg.n_heads, tuple(lead)
-    if cfg.attn_kind == AttnKind.MLA:
+    if cfg.attn_kind == AttnKind.MLA and not cross:
         m = cfg.mla
         r, nope, rope = m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim
         shapes = {"wq": (d, h * (nope + rope)), "w_dkv": (d, r),
@@ -174,12 +184,27 @@ def attention_fwd(
     cache: Optional[Params] = None,
     cur_index: Optional[Index] = None,    # decode mode when S==1 & cache
     causal: bool = True,
+    kv_source: Optional[torch.Tensor] = None,  # cross-attention memory
 ) -> Tuple[torch.Tensor, Params]:
-    if cfg.attn_kind == AttnKind.MLA:
+    if cfg.attn_kind == AttnKind.MLA and kv_source is None:
         return mla_fwd(p, cfg, x, positions, cache, cur_index)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+
+    if kv_source is not None:
+        # cross-attention; a cache, when given, holds the encoder's K/V
+        if cache is not None:
+            k, v = cache["k"], cache["v"]
+        else:
+            t = kv_source.shape[1]
+            k = (kv_source @ p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
+            v = (kv_source @ p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        out = _gqa_scores_out(q, k, v, torch.zeros((), device=x.device))
+        return out.reshape(b, s, -1) @ p["wo"], {"k": k, "v": v}
+
     k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
@@ -205,6 +230,89 @@ def attention_fwd(
         out = _gqa_scores_out(q, k, v, mask)
     new_cache = {"k": k, "v": v}  # prefill artifact
     return out.reshape(b, s, -1) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# quantized-KV decode (the reference's serve_step_quantized data plane)
+# ---------------------------------------------------------------------------
+#
+# Eager torch, as the reference's is eager jnp: each new token is
+# quantized on write (asymmetric, per token and head over hd) and the whole
+# cache is dequantized for the step. The decode_attn kernel reads another
+# layout (K packed along tokens) and is not used here.
+
+def init_quantized_cache(cfg: ModelConfig, batch: int, capacity: int,
+                         device, bits: int = 4,
+                         lead: Tuple[int, ...] = ()) -> Params:
+    hd = cfg.resolved_head_dim
+    shape_p = lead + (batch, capacity, cfg.n_kv_heads, hd // (8 // bits))
+    shape_s = lead + (batch, capacity, cfg.n_kv_heads, 1)
+    cache = {}
+    for x in ("k", "v"):
+        cache[f"{x}_packed"] = torch.zeros(shape_p, dtype=torch.uint8,
+                                           device=device)
+        for name in ("scale", "zero"):
+            cache[f"{x}_{name}"] = torch.zeros(shape_s, dtype=torch.float32,
+                                               device=device)
+    return cache
+
+
+def _quant_token(x: torch.Tensor, bits: int):
+    """x: (B, 1, Kv, hd) -> packed (B, 1, Kv, hd/cpb) uint8, scale, zero
+    (B, 1, Kv, 1) f32. Codes round half to even; torch shifts no uint32,
+    so they are packed in int32 and stored as uint8."""
+    cpb = 8 // bits
+    xf = x.to(torch.float32)
+    zero = xf.amin(dim=-1, keepdim=True)
+    scale = (xf.amax(dim=-1, keepdim=True) - zero) / (2 ** bits - 1)
+    safe = torch.where(scale > 0, scale, 1.0)
+    q = torch.clamp(torch.round((xf - zero) / safe), 0, 2 ** bits - 1)
+    q = q.to(torch.int32).reshape(*x.shape[:-1], x.shape[-1] // cpb, cpb)
+    shifts = torch.arange(cpb, dtype=torch.int32, device=x.device) * bits
+    packed = (q << shifts).sum(dim=-1).to(torch.uint8)
+    return packed, scale, zero
+
+
+def _dequant_cache(packed, scale, zero, bits: int, dtype):
+    """codes * scale + zero, a multiply and an add (two roundings, as the
+    reference's eager ops round them), in ``dtype``."""
+    cpb = 8 // bits
+    p = packed.to(torch.int32)[..., None]
+    shifts = torch.arange(cpb, dtype=torch.int32, device=p.device) * bits
+    codes = ((p >> shifts) & (2 ** bits - 1)).to(torch.float32)
+    codes = codes.reshape(*packed.shape[:-1], packed.shape[-1] * cpb)
+    return (codes * scale + zero).to(dtype)
+
+
+def attention_fwd_quantized(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                            positions: torch.Tensor, cache: Params,
+                            cur_index: Index) -> Tuple[torch.Tensor, Params]:
+    """One-token GQA decode over a packed-uint8 KV cache, written in
+    place."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"quantized decode takes one token, not {s}")
+    hd = cfg.resolved_head_dim
+    bits = 8 // (hd // cache["k_packed"].shape[-1])   # from the packing
+    q = (x @ p["wq"]).reshape(b, 1, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, 1, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, 1, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+
+    for name, new in (("k", k), ("v", v)):
+        for part, val in zip(("packed", "scale", "zero"),
+                             _quant_token(new, bits)):
+            _write_cache(cache[f"{name}_{part}"], val, cur_index)
+    kd, vd = (_dequant_cache(cache[f"{n}_packed"], cache[f"{n}_scale"],
+                             cache[f"{n}_zero"], bits, x.dtype)
+              for n in ("k", "v"))
+    mask = _decode_mask(cur_index, kd.shape[1], x.device)
+    out = _gqa_scores_out(q, kd, vd, mask)
+    return out.reshape(b, 1, -1) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------

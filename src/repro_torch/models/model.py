@@ -18,9 +18,6 @@ from repro_torch.models.layers import Params
 class Model:
     cfg: ModelConfig
 
-    def __post_init__(self):
-        transformer.check_supported(self.cfg)
-
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Seeded random parameters on ``device`` (CUDA unless asked)."""
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
@@ -42,9 +39,10 @@ class Model:
                                        tokens, position)
 
     def init_cache(self, batch: int, capacity: int, device="cuda",
-                   kv_bits: int = 16):
+                   enc_len: int = 0, kv_bits: int = 16):
         return transformer.init_cache(self.cfg, batch, capacity,
-                                      resolve_device(device), kv_bits)
+                                      resolve_device(device),
+                                      enc_len=enc_len, kv_bits=kv_bits)
 
     def param_count(self, params: Optional[Params] = None) -> int:
         if params is not None:

@@ -1,24 +1,35 @@
-"""Decoder-only LM: GQA or MLA attention, or Mamba-1 blocks, each with a
-gated MLP or a mixture-of-experts FFN.
+"""The LM backbone: GQA or MLA attention, or Mamba-1 blocks, each with a
+gated MLP or a mixture-of-experts FFN; an encoder-decoder form and
+vision patches.
 
-Counterpart of ``repro.models.transformer`` for the dense family (the
-adaptcache-8b / Llama-3.1-8B shape and the other dense GQA configs), the
-MoE family (olmoe; deepseek-v2-lite, with MLA and a dense first layer), the
-pure-SSM family (falcon-mamba) and the Mamba/attention hybrid with MoE
-(jamba). The parameter and cache trees keep the reference's layout, so a
+Counterpart of ``repro.models.transformer`` for every family of the
+registry: dense GQA (adaptcache-8b, the Llama-3.1-8B shape, and the other
+dense configs), MoE (olmoe; deepseek-v2-lite, with MLA and a dense first
+layer), pure SSM (falcon-mamba), the Mamba/attention hybrid with MoE
+(jamba), the encoder-decoder (seamless-m4t: a bidirectional encoder over
+stub frame embeddings, decoder blocks with cross-attention) and the VLM
+(internvl2: stub patch embeddings projected and prepended to the
+tokens). The parameter and cache trees keep the reference's layout, so a
 JAX param pytree carries across leaf for leaf (``convert.params_from_numpy``):
 
   params: {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
-           "prefix": [block, ...], "stack": [block, ...]} — the prefix holds
-           the layers whose structure differs from the repeating pattern
-           (deepseek's dense first layer), unstacked; the stack one block
-           per position of the layer pattern, its leaves stacked on a
-           leading layer-group axis G. An attention block is {"ln1",
-           "attn"[, "ln2", "ffn" or "ffn_moe"]}, a mamba block {"ln1",
-           "mamba"[, "ln2", "ffn" or "ffn_moe"]}
+           "prefix": [block, ...], "stack": [block, ...],
+           "enc_stack": enc block, "enc_norm": (d,), "patch_proj": (d, d)}
+           — the prefix holds the layers whose structure differs from the
+           repeating pattern (deepseek's dense first layer), unstacked; the
+           stack one block per position of the layer pattern, its leaves
+           stacked on a leading layer-group axis G. An attention block is
+           {"ln1", "attn"[, "ln_cross", "cross"][, "ln2", "ffn" or
+           "ffn_moe"]}, a mamba block {"ln1", "mamba"[, "ln2", "ffn" or
+           "ffn_moe"]}. The encoder-decoder's ``enc_stack`` is one dict
+           {"ln1", "attn", "ln2", "ffn"} with leaves stacked on the encoder
+           layers; ``patch_proj`` is there when the config has patches.
   cache : {"prefix": [{"self": {"ckv": (B,C,r), "krope": (B,C,rope)}}, ...],
-           "stack": [{"self": {"k": (G,B,C,Kv,hd), "v"} or {"ckv", "krope"}}
-           or {"mamba": {"conv": (G,B,c-1,d_in), "ssm": (G,B,d_in,n)}}]}
+           "stack": [{"self": {"k": (G,B,C,Kv,hd), "v"} or {"ckv", "krope"}
+           or the packed quantized form (``kv_bits`` < 16, GQA only)}
+           or {"mamba": {"conv": (G,B,c-1,d_in), "ssm": (G,B,d_in,n)}}]};
+           an encoder-decoder's blocks also hold "cross": {"k", "v"} of
+           (G,B,T_enc,Kv,hd), written whole by the prefill.
 
 The reference scans over the stacked groups with ``lax.scan``; here a
 Python loop walks them, indexing views of the stacked tensors, after the
@@ -29,7 +40,8 @@ step with ``unbind``: indexing ``leaf[g]`` a layer would, in backward, add a
 zero tensor of the whole stack into the gradient once a layer, where
 ``unbind``'s backward stacks the layers' gradients once. Remat wraps each
 layer group in ``torch.utils.checkpoint`` (the reference: ``jax.checkpoint``
-on the scanned group body), which changes memory, not the numbers. The MoE
+on the scanned group body), which changes memory, not the numbers; the
+encoder runs without it, as the reference's encoder scan does. The MoE
 layers' load-balance losses are summed over the layers in order, and
 training's MoE drops slots past each expert's capacity, as the
 reference's does; prefill and decode are dropless.
@@ -42,27 +54,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import FFNKind, LayerKind, ModelConfig
+from repro_torch.configs.base import AttnKind, FFNKind, LayerKind, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import Params, _dtype, mlp_fwd, rmsnorm
-
-# the families whose layers the port does not have yet (ROADMAP §A8)
-_LATER = "ported by ROADMAP §A8 (the other model families)"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model families the port does not have yet."""
-    if any(k not in (LayerKind.ATTN, LayerKind.MAMBA)
-           for k in cfg.layer_kinds()):
-        raise NotImplementedError(f"{cfg.name}: cross-attention layers are "
-                                  f"{_LATER}")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder is {_LATER}")
-    if cfg.n_patches:
-        raise NotImplementedError(f"{cfg.name}: vision patches are {_LATER}")
-
 
 def _prefix_count(cfg: ModelConfig) -> int:
     """Layers whose tree structure differs from the stacked groups'."""
@@ -96,6 +92,9 @@ def _block_shapes(cfg: ModelConfig, layer: int,
                        "mamba": mamba_lib.param_shapes(cfg, lead)}
     else:
         blk = {"ln1": lead + (d,), "attn": attn_lib.param_shapes(cfg, lead)}
+    if cfg.is_encoder_decoder:
+        blk["ln_cross"] = lead + (d,)
+        blk["cross"] = attn_lib.param_shapes(cfg, lead, cross=True)
     if cfg.ffn_kind != FFNKind.NONE:
         blk["ln2"] = lead + (d,)
         if cfg.uses_moe_at(layer):
@@ -104,16 +103,19 @@ def _block_shapes(cfg: ModelConfig, layer: int,
             ff = cfg.d_ff
             if cfg.moe is not None and layer < cfg.moe.first_k_dense:
                 ff = cfg.moe.dense_d_ff or cfg.d_ff
-            blk["ffn"] = {"wi_gate": lead + (d, ff), "wi_up": lead + (d, ff),
-                          "wo": lead + (ff, d)}
+            blk["ffn"] = _mlp_shapes(d, ff, lead)
     return blk
+
+
+def _mlp_shapes(d: int, ff: int, lead: Tuple[int, ...]) -> Params:
+    return {"wi_gate": lead + (d, ff), "wi_up": lead + (d, ff),
+            "wo": lead + (ff, d)}
 
 
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree with shape tuples for leaves (no allocation).
     Each stacked position takes the structure of its first group's layer,
     as the reference's vmapped init does; every group must agree."""
-    check_supported(cfg)
     npre = _prefix_count(cfg)
     pattern, g = _pattern(cfg)
     period = len(pattern)
@@ -128,6 +130,15 @@ def param_shapes(cfg: ModelConfig) -> Params:
         p["lm_head"] = (d, cfg.vocab_size)
     p["prefix"] = [_block_shapes(cfg, i, ()) for i in range(npre)]
     p["stack"] = [_block_shapes(cfg, npre + j, (g,)) for j in range(period)]
+    if cfg.is_encoder_decoder:
+        lead = (cfg.n_enc_layers,)
+        p["enc_stack"] = {"ln1": lead + (d,),
+                          "attn": attn_lib.param_shapes(cfg, lead, cross=True),
+                          "ln2": lead + (d,),
+                          "ffn": _mlp_shapes(d, cfg.d_ff, lead)}
+        p["enc_norm"] = (d,)
+    if cfg.n_patches:
+        p["patch_proj"] = (d, d)
     return p
 
 
@@ -196,23 +207,33 @@ def _group(tree, g: int):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
-               kv_bits: int = 16) -> Params:
-    """Zeroed decode cache mirroring the param stack layout."""
-    check_supported(cfg)
-    if kv_bits < 16:
-        raise NotImplementedError(
-            "the packed-uint8 quantized decode cache is not ported yet "
-            "(ROADMAP §A10)")
+               enc_len: int = 0, kv_bits: int = 16) -> Params:
+    """Zeroed decode cache mirroring the param stack layout.
+
+    An encoder-decoder's blocks get a cross cache of ``enc_len`` rows.
+    ``kv_bits`` < 16 builds the packed-uint8 quantized cache for GQA
+    attention layers; MLA latents and SSM states stay full precision, as
+    in the reference."""
     dtype = _dtype(cfg.dtype)
     pattern, g = _pattern(cfg)
     kinds = cfg.layer_kinds()
 
     def block(kind: LayerKind, lead: Tuple[int, ...]) -> Params:
         if kind == LayerKind.MAMBA:
-            return {"mamba": mamba_lib.init_mamba_cache(cfg, batch, dtype,
-                                                        device, lead=lead)}
-        return {"self": attn_lib.init_cache(cfg, batch, capacity, dtype,
-                                            device, lead=lead)}
+            c = {"mamba": mamba_lib.init_mamba_cache(cfg, batch, dtype,
+                                                     device, lead=lead)}
+        elif kv_bits < 16 and cfg.attn_kind == AttnKind.GQA:
+            c = {"self": attn_lib.init_quantized_cache(
+                cfg, batch, capacity, device, bits=kv_bits, lead=lead)}
+        else:
+            c = {"self": attn_lib.init_cache(cfg, batch, capacity, dtype,
+                                             device, lead=lead)}
+        if cfg.is_encoder_decoder:
+            shape = lead + (batch, enc_len, cfg.n_kv_heads,
+                            cfg.resolved_head_dim)
+            c["cross"] = {name: torch.zeros(shape, dtype=dtype, device=device)
+                          for name in ("k", "v")}
+        return c
 
     return {"prefix": [block(kinds[i], ()) for i in range(_prefix_count(cfg))],
             "stack": [block(kind, (g,)) for kind in pattern]}
@@ -223,14 +244,16 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
 # ---------------------------------------------------------------------------
 
 def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
-                 positions, cache_j: Optional[Params], cur_index,
+                 positions, cache_j: Optional[Params], cur_index, enc_out,
                  decode: bool, moe_dropless: bool = False):
     """One layer; returns (x, the MoE balance loss or None). Decode updates
-    ``cache_j`` in place (an attention layer writes its cache row, a mamba
-    layer its conv window and state); prefill (a cache but no decode)
-    copies its S cache rows into slots [0, S), or a mamba layer's final
-    conv window and state. The MoE FFN is dropless under decode or
-    ``moe_dropless``."""
+    ``cache_j`` in place (an attention layer writes its cache row, or its
+    packed quantized row, a mamba layer its conv window and state);
+    prefill (a cache but no decode) copies its S cache rows into slots
+    [0, S), or a mamba layer's final conv window and state. A block with
+    cross-attention attends over ``enc_out``'s K/V, which the prefill
+    writes whole into the cross cache, or, in decode, over the cached
+    ones. The MoE FFN is dropless under decode or ``moe_dropless``."""
     h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
     if kind == LayerKind.MAMBA:
         cm = None if cache_j is None else cache_j["mamba"]
@@ -244,7 +267,10 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
                 cm["ssm"].copy_(new["ssm"])
     else:
         cj = None if cache_j is None else cache_j["self"]
-        if decode:
+        if decode and cj is not None and "k_packed" in cj:
+            out, _ = attn_lib.attention_fwd_quantized(
+                bp["attn"], cfg, h, positions, cj, cur_index)
+        elif decode:
             out, _ = attn_lib.attention_fwd(bp["attn"], cfg, h, positions,
                                             cache=cj, cur_index=cur_index)
         else:
@@ -254,6 +280,22 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
                 for name, val in rows.items():
                     cj[name][:, :s] = val.to(cj[name].dtype)
     x = x + out
+
+    cc = None if cache_j is None else cache_j.get("cross")
+    if "cross" in bp and (enc_out is not None or cc is not None):
+        h = rmsnorm(x, bp["ln_cross"], cfg.norm_eps)
+        cached = decode and cc is not None
+        # with the cache's K/V, kv_source only selects cross-attention
+        src = enc_out if enc_out is not None else x.new_zeros(
+            (x.shape[0], 1, cfg.d_model))
+        out, kv = attn_lib.attention_fwd(bp["cross"], cfg, h, positions,
+                                         cache=cc if cached else None,
+                                         kv_source=src)
+        if cc is not None and not cached:
+            for name, val in kv.items():
+                cc[name].copy_(val)
+        x = x + out
+
     aux = None
     if cfg.ffn_kind != FFNKind.NONE:
         h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
@@ -271,7 +313,7 @@ def _with_aux(total: torch.Tensor, aux: Optional[torch.Tensor]):
 
 
 def _run_prefix(params: Params, cfg: ModelConfig, x, positions,
-                cache: Optional[Params], cur_index, decode: bool,
+                cache: Optional[Params], cur_index, enc_out, decode: bool,
                 moe_dropless: bool):
     """The unstacked prefix layers; returns (x, their MoE balance losses
     summed)."""
@@ -280,24 +322,24 @@ def _run_prefix(params: Params, cfg: ModelConfig, x, positions,
     for i, bp in enumerate(params["prefix"]):
         cj = None if cache is None else cache["prefix"][i]
         x, a = _apply_block(bp, cfg, kinds[i], x, positions, cj, cur_index,
-                            decode, moe_dropless)
+                            enc_out, decode, moe_dropless)
         aux = _with_aux(aux, a)
     return x, aux
 
 
 def _run_stack(params: Params, cfg: ModelConfig, x, positions,
-               cache: Optional[Params], cur_index, decode: bool,
+               cache: Optional[Params], cur_index, enc_out, decode: bool,
                moe_dropless: bool = False):
     """The prefix layers, then the stacked groups; returns (x, the MoE
     balance losses summed over the layers)."""
-    x, aux = _run_prefix(params, cfg, x, positions, cache, cur_index, decode,
-                         moe_dropless)
+    x, aux = _run_prefix(params, cfg, x, positions, cache, cur_index,
+                         enc_out, decode, moe_dropless)
     pattern, n_groups = _pattern(cfg)
     for g in range(n_groups):
         for j, kind in enumerate(pattern):
             cj = None if cache is None else _group(cache["stack"][j], g)
             x, a = _apply_block(_group(params["stack"][j], g), cfg, kind, x,
-                                positions, cj, cur_index, decode,
+                                positions, cj, cur_index, enc_out, decode,
                                 moe_dropless)
             aux = _with_aux(aux, a)
     return x, aux
@@ -310,13 +352,14 @@ def _unbind(tree, n: int) -> List[Params]:
 
 
 def _train_stack(params: Params, cfg: ModelConfig, x, positions,
-                 remat: bool, moe_dropless: bool = False):
+                 remat: bool, moe_dropless: bool = False, enc_out=None):
     """The layer stack for training: no cache, each stacked leaf split
     once (``_unbind``), each group under ``checkpoint`` with ``remat``
     (the prefix layers outside it, as the reference's are outside its
-    scan). Returns (x, the MoE balance losses summed over the layers)."""
-    x, aux = _run_prefix(params, cfg, x, positions, None, None, False,
-                         moe_dropless)
+    scan); cross-attention blocks attend over ``enc_out``. Returns (x, the
+    MoE balance losses summed over the layers)."""
+    x, aux = _run_prefix(params, cfg, x, positions, None, None, enc_out,
+                         False, moe_dropless)
     pattern, n_groups = _pattern(cfg)
     groups = list(zip(*(_unbind(params["stack"][j], n_groups)
                         for j in range(len(pattern)))))
@@ -324,7 +367,7 @@ def _train_stack(params: Params, cfg: ModelConfig, x, positions,
     def group(x, aux, g: int):
         for bp, kind in zip(groups[g], pattern):
             x, a = _apply_block(bp, cfg, kind, x, positions, None, None,
-                                False, moe_dropless)
+                                enc_out, False, moe_dropless)
             aux = _with_aux(aux, a)
         return x, aux
 
@@ -335,12 +378,49 @@ def _train_stack(params: Params, cfg: ModelConfig, x, positions,
 
 
 # ---------------------------------------------------------------------------
+# encoder (encoder-decoder configs; its input is stub frame embeddings)
+# ---------------------------------------------------------------------------
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """frames: (B, T, d_model) precomputed frontend embeddings (a stub).
+    Each layer: bidirectional self-attention in the cross form (no RoPE,
+    no mask), then the MLP; the encoder's final norm last."""
+    x = frames.to(_dtype(cfg.dtype))
+    zeros = torch.zeros(x.shape[:2], dtype=torch.long, device=x.device)
+    for bp in _unbind(params["enc_stack"], cfg.n_enc_layers):
+        h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        out, _ = attn_lib.attention_fwd(bp["attn"], cfg, h, zeros,
+                                        kv_source=h)
+        x = x + out
+        x = x + mlp_fwd(bp["ffn"], rmsnorm(x, bp["ln2"], cfg.norm_eps))
+    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _encode_batch(params: Params, cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    """The encoder's output over ``batch["frames"]`` for an
+    encoder-decoder config (a batch without frames raises KeyError, as the
+    reference's does), else None."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return encode(params, cfg, batch["frames"])
+
+
+# ---------------------------------------------------------------------------
 # embeddings and heads
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params: Params, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return params["embed"][batch["tokens"]].to(_dtype(cfg.dtype))
+    """Token embeddings; with patches in the config and in ``batch``, the
+    projected patch embeddings (B, n_patches, d) go in front of them."""
+    dtype = _dtype(cfg.dtype)
+    tok = params["embed"][batch["tokens"]].to(dtype)
+    if cfg.n_patches and "patch_embeds" in batch:
+        patches = batch["patch_embeds"].to(dtype) @ params["patch_proj"]
+        tok = torch.cat([patches, tok], dim=1)
+    return tok
 
 
 def _head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -369,7 +449,8 @@ def forward_train(params: Params, cfg: ModelConfig,
     """Teacher-forced logits over the full sequence. Returns (logits, aux),
     aux the MoE layers' balance losses summed (0 without MoE)."""
     x = embed_inputs(params, cfg, batch)
-    x, aux = _train_stack(params, cfg, x, _positions(x), remat, moe_dropless)
+    x, aux = _train_stack(params, cfg, x, _positions(x), remat, moe_dropless,
+                          enc_out=_encode_batch(params, cfg, batch))
     return lm_logits(params, cfg, x), aux
 
 
@@ -409,7 +490,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             aux_weight: float = 0.01, remat: bool = False,
             loss_chunk: int = 512) -> torch.Tensor:
     x = embed_inputs(params, cfg, batch)
-    x, aux = _train_stack(params, cfg, x, _positions(x), remat)
+    x, aux = _train_stack(params, cfg, x, _positions(x), remat,
+                          enc_out=_encode_batch(params, cfg, batch))
     loss = chunked_ce_loss(params, cfg, x, batch["labels"], chunk=loss_chunk)
     return loss + aux_weight * aux
 
@@ -421,14 +503,18 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Process the full prompt; return (last-position logits, decode cache).
 
     The S prompt tokens' cache rows (K/V, or MLA's latent) land in zeroed
-    capacity-C buffers at slots [0, S) (C >= S); mamba layers keep their
-    final conv window and state."""
+    capacity-C buffers at slots [0, S) (C >= S; S counts the patches in
+    front of the tokens); mamba layers keep their final conv window and
+    state; an encoder-decoder's cross cache holds the encoder's K/V
+    whole."""
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     if s > capacity:
         raise ValueError(f"prompt of {s} tokens exceeds capacity {capacity}")
-    cache = init_cache(cfg, b, capacity, x.device)
-    x, _ = _run_stack(params, cfg, x, _positions(x), cache, None,
+    enc_out = _encode_batch(params, cfg, batch)
+    cache = init_cache(cfg, b, capacity, x.device,
+                       enc_len=0 if enc_out is None else enc_out.shape[1])
+    x, _ = _run_stack(params, cfg, x, _positions(x), cache, None, enc_out,
                       decode=False, moe_dropless=moe_dropless)
     return lm_logits(params, cfg, x[:, -1:, :]), cache
 
@@ -452,6 +538,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                                device=x.device)
     else:
         positions = pos.to(x.device, torch.long)[:, None]
-    x, _ = _run_stack(params, cfg, x, positions, cache, cur_index,
+    x, _ = _run_stack(params, cfg, x, positions, cache, cur_index, None,
                       decode=True)
     return lm_logits(params, cfg, x), cache

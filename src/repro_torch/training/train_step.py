@@ -44,7 +44,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                   for p in tree_lib.leaves(params)]
         loss = model.loss(tree_lib.unflatten(params, leaves), batch,
                           remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the batch does not reach (a VLM's patch projection on a
+        # text batch) gets zeros, as ``jax.grad`` gives it
+        grads = [torch.zeros_like(p) if g is None else g for p, g in
+                 zip(leaves, torch.autograd.grad(loss, leaves,
+                                                 allow_unused=True))]
         return loss.detach(), tree_lib.unflatten(params, grads)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]

@@ -33,6 +33,9 @@ BF16_SLACK = 2.0    # the port's bf16 error, in units of the reference's own
 FULL_PARAMS = {"olmoe-1b-7b": (6_919_100_416, 1_281_955_840),
                "deepseek-v2-lite-16b": (15_706_484_224, 2_661_150_208),
                "jamba-1.5-large-398b": (398_555_111_424, 94_149_304_320)}
+# the encoder-decoder and the VLM at full width, the reference's counts
+FAMILY_PARAMS = {"seamless-m4t-large-v2": 2_034_784_256,
+                 "internvl2-1b": 494_556_160}
 
 
 def _pair(arch: str, seed: int = 0):
@@ -160,10 +163,95 @@ def test_param_counts_and_shapes_match():
     assert tbuild(tget("adaptcache-8b")).param_count() > 8e9
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-1b"])
-def test_other_families_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP §A8"):
-        tbuild(tget(arch, smoke=True))
+def family_batch(cfg, rng, b: int, s: int, patches: bool = True) -> dict:
+    """numpy inputs for ``cfg``: tokens (b, s), and the stub frames
+    (b, n_frames, d) of an encoder-decoder or, with ``patches``, the patch
+    embeddings (b, n_patches, d) of a VLM, N(0, 1) x 0.1 as
+    ``tests/test_models.py`` draws them."""
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (b, s))}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = (rng.randn(b, cfg.n_frames, cfg.d_model)
+                           * 0.1).astype(np.float32)
+    if cfg.n_patches and patches:
+        batch["patch_embeds"] = (rng.randn(b, cfg.n_patches, cfg.d_model)
+                                 * 0.1).astype(np.float32)
+    return batch
+
+
+FAMILY_CASES = [("seamless-m4t-large-v2", True), ("internvl2-1b", True),
+                ("internvl2-1b", False)]
+
+
+@pytest.mark.parametrize("arch,patches", FAMILY_CASES,
+                         ids=["seamless", "internvl", "internvl-text"])
+def test_encdec_and_vlm_families_match(arch, patches):
+    """seamless (encoder over stub frames, cross-attention in every
+    decoder block) and internvl (patches projected in front of the tokens,
+    or none: the reference's serving path passes none) on shared weights:
+    ``forward_train``'s logits, the prefill's logits and every cache leaf
+    (the cross K/V too), decode steps at one slot (S + n_patches, after
+    the patches) and at per-lane slots and RoPE positions. The reference's
+    calls are jitted."""
+    cfg, jm, jp, tm, tp = _pair(arch)
+    rng = np.random.RandomState(1)
+    nb = family_batch(cfg, rng, 2, 12, patches)
+    jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    tb = {k: torch.from_numpy(v) for k, v in nb.items()}
+    n = 12 + (cfg.n_patches if "patch_embeds" in nb else 0)
+    jlog = jax.jit(jm.forward)(jp, jb)
+    with torch.no_grad():
+        tlog = tm.forward(tp, tb)
+    assert tlog.shape == (2, n, cfg.vocab_size)
+    _close(tlog, jlog)
+    jl, jc = jax.jit(jm.prefill, static_argnames="capacity")(
+        jp, jb, capacity=n + 8)
+    tl, tc = tm.prefill(tp, tb, capacity=n + 8)
+    _close(tl, jl)
+    jflat = dict(jax.tree_util.tree_flatten_with_path(jc)[0])
+    tleaves = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), tc))[0]
+    assert sorted(map(str, jflat)) == sorted(str(k) for k, _ in tleaves)
+    if cfg.is_encoder_decoder:
+        assert tc["stack"][0]["cross"]["k"].shape == (
+            cfg.n_layers, 2, cfg.n_frames, cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+    for key, leaf in tleaves:
+        np.testing.assert_allclose(leaf, np.asarray(jflat[key]), **TOL,
+                                   err_msg=str(key))
+    nxt = rng.randint(0, cfg.vocab_size, (2, 1))
+    jdecode = jax.jit(jm.decode_step)
+    jl, jc = jdecode(jp, jc, jnp.int32(n), jnp.asarray(nxt))
+    tl, tc = tm.decode_step(tp, tc, n, torch.from_numpy(nxt))
+    _close(tl, jl)
+    slot, pos = np.array([n + 1, n + 5]), np.array([n + 1, n + 7])
+    jl, _ = jdecode(jp, jc, jnp.asarray(slot), jnp.asarray(nxt),
+                    jnp.asarray(pos))
+    tl, _ = tm.decode_step(tp, tc, torch.from_numpy(slot),
+                           torch.from_numpy(nxt), torch.from_numpy(pos))
+    _close(tl, jl)
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_PARAMS))
+def test_encdec_and_vlm_param_counts_at_full_width(arch):
+    """Counted from shapes, the encoder and the patch projection included,
+    as the reference counts them; nothing is MoE, so every param is
+    active."""
+    m = tbuild(tget(arch))
+    assert (m.param_count(), m.active_param_count()) == (
+        FAMILY_PARAMS[arch],) * 2
+
+
+def test_every_registered_config_builds():
+    """Every config of the registry builds, and its params, counted from
+    shapes, equal the reference's, at smoke size and at full width."""
+    from repro.configs import REGISTRY
+    from repro_torch.configs import REGISTRY as TREGISTRY
+    assert sorted(REGISTRY) == sorted(TREGISTRY)
+    for arch in REGISTRY:
+        for smoke in (True, False):
+            assert (tbuild(tget(arch, smoke=smoke)).param_count()
+                    == jbuild(jget(arch, smoke=smoke)).param_count()), (
+                        arch, smoke)
 
 
 @pytest.mark.parametrize("arch", list(FULL_PARAMS))

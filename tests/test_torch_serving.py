@@ -197,11 +197,13 @@ def test_serve_driver_flags_and_run():
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "internvl2-1b"])
 def test_serve_driver_runs_moe_and_mla(arch):
     """The serve driver trains the MoE smoke models (capacity dropping and
     the balance loss in the loss), then serves them through the KIVI
-    policy on the CPU; jamba, which no card holds at full width, too."""
+    policy on the CPU; jamba, which no card holds at full width, too; and
+    internvl2, as a text-only decoder, since the data pipeline and the
+    runner pass no patches (as the reference's do)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = tserve.main(["--device", "cpu", "--arch", arch,
@@ -213,6 +215,20 @@ def test_serve_driver_runs_moe_and_mla(arch):
     assert re.search(r"smoke model trained 2 steps, final loss \d+\.\d+",
                      text)
     assert "=== serving summary ===" in text and "hit_rate" in text
+
+
+def test_serve_driver_cannot_serve_seamless():
+    """Neither serve driver serves the encoder-decoder: the smoke
+    training's batches carry no ``frames``, so the first step's loss
+    raises a KeyError in both (ROADMAP C). The reference runs one step
+    (0 crashes it, ROADMAP C)."""
+    from repro.launch import serve as jserve
+    flags = ["--arch", "seamless-m4t-large-v2", "--train-steps", "1",
+             "--duration", "1", "--contexts-per-task", "1"]
+    with pytest.raises(KeyError, match="frames"):
+        jserve.main(flags)
+    with pytest.raises(KeyError, match="frames"):
+        tserve.main(["--device", "cpu"] + flags)
 
 
 def test_train_steps_0_serves_the_seeded_init():
