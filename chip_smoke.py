@@ -7,7 +7,8 @@ Needs one CUDA card, ``nvcc`` and the repo's ``src/`` beside this file; it
 imports nothing of JAX and nothing of the JAX package. Phases, each of which
 stops the run with a non-zero exit when it fails:
 
-1. build   — print the card and its power limit; build the five CUDA
+1. build   — print the card, its power limit and its total memory (the
+             roofline's ``HBM_BYTES`` beside it); build the five CUDA
              libraries (``kivi``, ``decode_attn``, ``fused_prefill``,
              ``flash_attn``, ``selective_scan`` under
              ``src/repro_torch/kernels/*/csrc/``), one ``nvcc`` each, all
@@ -197,15 +198,37 @@ stops the run with a non-zero exit when it fails:
              every form launched; the decode step against the prefill
              over the frames in bf16 (printed) and in f32 (the same seed's
              f32 init, held within 1e-4).
+12. launch — (a) the dry run (``repro_torch.launch.dryrun``) of
+             qwen3-1.7b x train_4k, olmoe-1b-7b x decode_32k and
+             falcon-mamba-7b x long_500k on the fake (16, 16) mesh and
+             jamba-1.5-large-398b x train_4k (int8 state) on (2, 16, 16),
+             each in its own process on this host's CPU (its fake group
+             never shares a process with the card's NCCL group), each held
+             to ``ok`` and its row printed: FLOPs, HBM and collective bytes
+             a chip, the three terms, the bottleneck, the analytic peak
+             against the card's memory; (b) on a process group of one
+             (NCCL) and ``make_host_mesh("cuda")``: full-width olmoe-1b-7b
+             in f32 with its params wrapped as DTensors (no copy), a
+             prefill of phase 3's 556-token context and 16 greedy decode
+             steps through ``moe_fwd_ep``, each step's logits within 1e-4
+             of the same steps on plain tensors (``moe_fwd``), a decode
+             step's time both ways; full-width falcon-mamba-7b in bf16, a
+             prefill of 556 tokens with DTensor params: 64 scan launches
+             on the local shards, logits bit-equal to the plain prefill;
+             (c) the step counter's FLOPs of the olmoe decode step on the
+             card equal to its count on meta tensors, the step's time
+             beside its roofline (one card, ``launch.roofline``).
 
 The line before the last is the ``kernels`` JSON line (eleven entries,
 each with its own kernel's launches: phase 3's for KIVI, phase 4's for the
 attention kernels, flash_attention's f32 tensor-core, bf16 tensor-core
 and CUDA-core kernels as three entries, phase 5's for the scan, phase 7's
-counted step for ``selective_scan_bwd``), and the six
+counted step for ``selective_scan_bwd``; the scan's also counts phase
+12's, with ``launches_by_phase``), and the seven
 before it phase 6's ``training``, phase 7's ``mamba_training``, phase 8's
-``moe_serving``, phase 9's ``mla_serving``, phase 10's ``vlm_serving`` and
-phase 11's ``encdec`` summaries (launches, wall times, idle shares); the
+``moe_serving``, phase 9's ``mla_serving``, phase 10's ``vlm_serving``,
+phase 11's ``encdec`` and phase 12's ``launch`` summaries (launches, wall
+times, idle shares, the dry-run rows); the
 last line is
 ``{"ok": true, "device": {...}}``. Measurements also go to
 ``chiprun_out/chip_smoke.json``.
@@ -2182,6 +2205,294 @@ def encdec_line(out: dict, card: str) -> dict:
         "profile_top3": [op["name"][:60] for op in prof["top"][:3]]}
 
 
+# phase 12: the launch tooling
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", False),
+                ("olmoe-1b-7b", "decode_32k", False),
+                ("falcon-mamba-7b", "long_500k", False),
+                ("jamba-1.5-large-398b", "train_4k", True))
+DRYRUN_TIMEOUT_S = 300
+MESH_DECODE_STEPS = 16
+EP_RTOL = 1e-4                  # the reference's expert-parallel bound
+
+
+def start_dryruns() -> list:
+    """Each dry-run cell in its own process (its fake group of 256 ranks
+    never meets this process's NCCL group), all started together, one CPU
+    thread each."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        tag = f"dryrun_{arch}_{shape}{'_2pod' if multi_pod else ''}"
+        log = open(out_dir / f"{tag}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--json", str(out_dir / f"{tag}.json")]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        procs.append(((arch, shape, multi_pod), out_dir / f"{tag}.json",
+                      log, subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                            stdout=log, stderr=log)))
+    return procs
+
+
+def finish_dryruns(procs) -> list:
+    """Wait for each cell, hold it to ``ok`` and print its row."""
+    from repro_torch.launch.mesh import HBM_BYTES
+    rows = []
+    for (arch, shape, multi_pod), path, log, proc in procs:
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"dry run {arch} x {shape} took over {DRYRUN_TIMEOUT_S} s")
+        log.close()
+        if rc != 0 or not path.exists():
+            fail(f"dry run {arch} x {shape} exited {rc}: "
+                 f"{Path(log.name).read_text()[-2000:]}")
+        r = json.loads(path.read_text())[0]
+        if r["status"] != "ok":
+            fail(f"dry run {arch} x {shape}: {r}")
+        print(f"  {arch} x {shape} x {r['mesh']}: flops/chip "
+              f"{r['flops_per_chip']:.4g}, hbm/chip "
+              f"{r['hbm_bytes_per_chip']:.4g} B, collective/chip "
+              f"{r['collective_bytes_per_chip']:.4g} B; compute "
+              f"{r['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['t_memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['t_collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; "
+              f"analytic peak {r['analytic_peak_bytes'] / 1e9:.3f} GB "
+              f"(fits {HBM_BYTES / 1e9:.1f} GB: {r['fits_hbm']}); "
+              f"step {r['step_s']:.1f} s, {r['n_ops']} ops")
+        rows.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "n_chips", "flops_per_chip",
+            "hbm_bytes_per_chip", "collective_bytes_per_chip",
+            "collective_detail", "model_flops_per_chip", "t_compute_s",
+            "t_memory_s", "t_collective_s", "bottleneck",
+            "analytic_peak_bytes", "args_bytes_per_chip",
+            "eager_live_peak_bytes", "fits_hbm", "build_s", "step_s",
+            "n_ops")})
+    return rows
+
+
+def meta_like(tree):
+    """A tree of DTensors with meta shards of the same shapes, dtypes and
+    placements (no memory)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.training import tree as tree_lib
+    return tree_lib.unflatten(tree, [
+        DTensor.from_local(torch.empty(t.to_local().shape, dtype=t.dtype,
+                                       device="meta"),
+                           t.device_mesh, t.placements, run_check=False)
+        for t in tree_lib.leaves(tree)])
+
+
+def on_mesh(tree, mesh, shardings):
+    """A tree of plain tensors as DTensors of its shardings on the (1, 1)
+    mesh, each wrapping its tensor (no copy)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.training import tree as tree_lib
+    return tree_lib.unflatten(tree, [
+        DTensor.from_local(t, mesh, s.placements, run_check=False)
+        for t, s in zip(tree_lib.leaves(tree), tree_lib.leaves(shardings),
+                        strict=True)])
+
+
+def greedy_decode(model, params, toks, capacity: int, steps: int, feed=None,
+                  wrap=lambda t: t):
+    """The prefill of ``toks`` and ``steps`` decode steps, each timed with
+    CUDA events: the next token is ``feed``'s, or the argmax of the last
+    logits. Returns (each step's last-position logits as plain f32, the
+    tokens fed, the step times in ms)."""
+    from torch.distributed.tensor import DTensor
+
+    def plain(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).float()
+
+    logits, cache = model.prefill(params, {"tokens": wrap(toks)},
+                                  capacity=capacity)
+    outs, fed, times = [plain(logits)[0, -1]], [], []
+    n = toks.shape[1]
+    for i in range(steps):
+        nxt = (feed[i] if feed is not None
+               else outs[-1].argmax().reshape(1, 1))
+        fed.append(nxt)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = model.decode_step(params, cache, n + i, wrap(nxt))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        outs.append(plain(logits)[0, -1])
+    return outs, fed, times
+
+
+def phase_launch(smi: str, scan_kernel) -> dict:
+    """(a) dry-run cells on the fake production mesh, in subprocesses on
+    this host's CPU, started once olmoe's steps are timed (a host-bound
+    eager step shares the host with them otherwise); (b) the mesh path on
+    the card: a group
+    of one (NCCL), ``make_host_mesh("cuda")``, full-width olmoe-1b-7b in
+    f32 through ``moe_fwd_ep`` against the plain path, full-width
+    falcon-mamba-7b in bf16 whose scan runs on local shards; (c) the step
+    counter's FLOPs of the olmoe decode step on the card against its count
+    on meta tensors, and the step's time beside its roofline."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.step_cost import count_step
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving.workload import make_contexts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh("cuda")
+    print(f"  mesh {mesh}; backend "
+          f"{torch.distributed.get_backend()}, world "
+          f"{torch.distributed.get_world_size()}")
+    ep_calls = {"n": 0}
+    ep_fn = moe_lib.moe_fwd_ep
+
+    def counted_ep(*a, **k):
+        ep_calls["n"] += 1
+        return ep_fn(*a, **k)
+    moe_lib.moe_fwd_ep = counted_ep
+
+    # (b) olmoe-1b-7b in f32: the mesh path against the plain one
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    ctx = make_contexts(np.random.RandomState(0), cfg.vocab_size, 1,
+                        min_len=384, max_len=640, n_probes=2)[0]
+    toks = torch.as_tensor(ctx.tokens, device="cuda")[None]
+    n = toks.shape[1]
+    capacity = n + MESH_DECODE_STEPS
+    print(f"  {MOE_ARCH} f32: {model.param_count(params):,} params, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+          f"a {n}-token context, {MESH_DECODE_STEPS} decode steps")
+    with torch.no_grad():
+        want, fed, plain_ms = greedy_decode(model, params, toks, capacity,
+                                            MESH_DECODE_STEPS)
+    if ep_calls["n"]:
+        fail("the plain path reached moe_fwd_ep")
+    dparams = on_mesh(params, mesh, sp.param_shardings(
+        model.init_shapes(), mesh, mode="serve"))
+    rep = shlib.NamedSharding(mesh, shlib.P(None, None))
+
+    def wrap(t):
+        return on_mesh(t, mesh, rep)
+
+    with torch.no_grad(), shlib.use_mesh(mesh):
+        got, _, mesh_ms = greedy_decode(model, dparams, toks, capacity,
+                                        MESH_DECODE_STEPS, feed=fed,
+                                        wrap=wrap)
+    moe_layers = sum(cfg.uses_moe_at(i) for i in range(cfg.n_layers))
+    want_ep = moe_layers * (1 + MESH_DECODE_STEPS)
+    if ep_calls["n"] != want_ep:
+        fail(f"moe_fwd_ep ran {ep_calls['n']} times, not {want_ep}")
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    if not all(math.isfinite(e) and e <= EP_RTOL for e in errs):
+        fail(f"mesh path vs plain path: max rel err {max(errs):.3g} > "
+             f"{EP_RTOL}")
+    print(f"  prefill + {MESH_DECODE_STEPS} decode steps through moe_fwd_ep "
+          f"({ep_calls['n']} calls) vs the plain moe_fwd: max rel err "
+          f"{max(errs):.3g} (<= {EP_RTOL}); a decode step "
+          f"{np.median(mesh_ms):.2f} ms on the mesh, "
+          f"{np.median(plain_ms):.2f} ms plain (median of "
+          f"{MESH_DECODE_STEPS}; {smi})")
+
+    # (c) the step counter: the card's decode step against meta tensors
+    with torch.no_grad(), shlib.use_mesh(mesh):
+        _, cache = model.prefill(dparams, {"tokens": wrap(toks)},
+                                 capacity=capacity)
+        tok = wrap(fed[0])
+        step_ms = time_ms(lambda: model.decode_step(dparams, cache, n, tok),
+                          5)
+        _, card_cost = count_step(model.decode_step, dparams, cache, n, tok)
+        meta_params, meta_cache, meta_tok = meta_like((dparams, cache, tok))
+        _, meta_cost = count_step(model.decode_step, meta_params, meta_cache,
+                                  n, meta_tok)
+    if card_cost.flops != meta_cost.flops or card_cost.flops <= 0:
+        fail(f"step counter: {card_cost.flops} FLOPs on the card, "
+             f"{meta_cost.flops} on meta tensors")
+    n_params, n_active = model.param_count(), model.active_param_count()
+    shape = ShapeConfig("mesh_decode", capacity, 1, "decode")
+    roof = rl.analyze(MOE_ARCH, shape, "1x1", 1, card_cost, cfg, n_params,
+                      n_active)
+    measured_fraction = (roof.model_flops_per_chip / (step_ms / 1e3)
+                         / rl.PEAK_FLOPS_BF16)
+    print(f"  step counter: {card_cost.flops:.6g} FLOPs on the card = "
+          f"{meta_cost.flops:.6g} on meta tensors; {card_cost.n_ops} ops, "
+          f"{card_cost.mem_bytes / 1e9:.3f} GB of op inputs and outputs")
+    print(f"  roofline of the decode step (1 card, bf16 weights assumed by "
+          f"the model): compute {roof.t_compute * 1e3:.4f} ms, memory "
+          f"{roof.t_memory * 1e3:.4f} ms, collective "
+          f"{roof.t_collective * 1e3:.4f} ms -> {roof.bottleneck}, "
+          f"roofline_fraction {roof.roofline_fraction:.4g}; measured "
+          f"{step_ms:.3f} ms (f32 weights, eager DTensor), model FLOPs "
+          f"share {measured_fraction:.3g} ({smi})")
+    moe_lib.moe_fwd_ep = ep_fn
+    del params, dparams, cache, meta_params, meta_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    procs = start_dryruns()
+    t_a = time.perf_counter()
+
+    # (b) falcon-mamba-7b in bf16: the scan on local shards
+    from repro_torch.training import tree as tree_lib
+    fcfg = get_config(MAMBA_ARCH)
+    fmodel = build_model(fcfg)
+    fparams = fmodel.init(seed=0, device="cuda")
+    ftoks = toks % fcfg.vocab_size
+    with torch.no_grad():
+        want_logits, _ = fmodel.prefill(fparams, {"tokens": ftoks},
+                                        capacity=n)
+        fd = on_mesh(fparams, mesh, sp.param_shardings(
+            fmodel.init_shapes(), mesh, mode="serve"))
+        scan_kernel.LAUNCHES.update(dict.fromkeys(scan_kernel.LAUNCHES, 0))
+        with shlib.use_mesh(mesh):
+            got_logits, _ = fmodel.prefill(fd, {"tokens": wrap(ftoks)},
+                                           capacity=n)
+        torch.cuda.synchronize()
+        scan_launches = dict(scan_kernel.LAUNCHES)
+    got_logits = got_logits.full_tensor()
+    if scan_launches["selective_scan"] != fcfg.n_layers:
+        fail(f"{MAMBA_ARCH} on the mesh: {scan_launches} scan launches, not "
+             f"one a layer ({fcfg.n_layers})")
+    if not torch.equal(got_logits, want_logits):
+        fail(f"{MAMBA_ARCH} on the mesh: logits differ from the plain "
+             f"prefill by {float((got_logits - want_logits).abs().max())}")
+    print(f"  {MAMBA_ARCH} bf16 prefill of {n} tokens, DTensor params: "
+          f"{scan_launches['selective_scan']} scan launches (one a layer), "
+          f"logits bit-equal to the plain prefill")
+    del fparams, fd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the dry-run cells
+    print(f"  dry-run cells on the fake production mesh, started "
+          f"{time.perf_counter() - t_a:.0f} s ago:")
+    rows = finish_dryruns(procs)
+    print(f"  dry runs done {time.perf_counter() - t_a:.0f} s after start")
+    return {"dryrun": rows, "ep_max_rel_err": max(errs),
+            "ep_calls": ep_calls["n"],
+            "decode_ms_mesh": float(np.median(mesh_ms)),
+            "decode_ms_plain": float(np.median(plain_ms)),
+            "counter_flops_card": card_cost.flops,
+            "counter_flops_meta": meta_cost.flops,
+            "decode_step_ms": step_ms, "roofline": roof.to_dict(),
+            "measured_model_flops_share": measured_fraction,
+            "scan_launches": scan_launches["selective_scan"],
+            "mamba_logits_bit_equal": True, "context_tokens": n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -2211,8 +2522,12 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    from repro_torch.launch.mesh import HBM_BYTES
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"total_memory {total} bytes (launch.mesh.HBM_BYTES "
+          f"{HBM_BYTES})")
 
-    print(f"[1/11] build ({elapsed()})")
+    print(f"[1/12] build ({elapsed()})")
     attn_kernels = {"decode_attn": decode_kernel,
                     "fused_prefill": fused_kernel,
                     "flash_attention": flash_kernel}
@@ -2229,7 +2544,7 @@ def main() -> int:
         for kname, usage in ptxas_usage(log):
             print(f"    ptxas {kname}: {usage}")
 
-    print(f"[2/11] kernels against the plain version ({elapsed()})")
+    print(f"[2/12] kernels against the plain version ({elapsed()})")
     kernel_rows, worst = phase_kernels(kernel, ref, Quantized)
     phase_kivi_layouts(kernel, ref)
     timed_rows = {
@@ -2245,15 +2560,15 @@ def main() -> int:
     decode_layouts_err = phase_decode_layouts(decode_ops, decode_ref,
                                               decode_kernel)
 
-    print(f"[3/11] serving full-width adaptcache-8b through build_engine "
+    print(f"[3/12] serving full-width adaptcache-8b through build_engine "
           f"({elapsed()})")
     summary, launches, wall_s, serving, profile3 = phase_serving()
 
-    print(f"[4/11] fused compute: kernel_bench calibration, then serving "
+    print(f"[4/12] fused compute: kernel_bench calibration, then serving "
           f"priced with it ({elapsed()})")
     fused = phase_fused(attn_kernels, summary, serving)
 
-    print(f"[5/11] serving full-width falcon-mamba-7b through build_engine "
+    print(f"[5/12] serving full-width falcon-mamba-7b through build_engine "
           f"({elapsed()})")
     del serving                            # free adaptcache-8b's weights
     gc.collect()
@@ -2262,29 +2577,33 @@ def main() -> int:
           "GB left on the card")
     mamba = phase_mamba(scan_kernel)
 
-    print(f"[6/11] training: the card against the CPU, the train driver's "
+    print(f"[6/12] training: the card against the CPU, the train driver's "
           f"resume, full-width adaptcache-8b ({elapsed()})")
     training = phase_training(smi)
 
-    print(f"[7/11] Mamba training: the card against the CPU, the serve "
+    print(f"[7/12] Mamba training: the card against the CPU, the serve "
           f"driver's training, full-width falcon-mamba-7b ({elapsed()})")
     mamba_training = phase_mamba_training(smi, scan_kernel)
 
-    print(f"[8/11] MoE serving: full-width {MOE_ARCH} through build_engine "
+    print(f"[8/12] MoE serving: full-width {MOE_ARCH} through build_engine "
           f"({elapsed()})")
     moe_serving = phase_family_serving(MOE_ARCH, "phase-8")
 
-    print(f"[9/11] MLA serving: full-width {MLA_ARCH} through build_engine "
+    print(f"[9/12] MLA serving: full-width {MLA_ARCH} through build_engine "
           f"({elapsed()})")
     mla_serving = phase_family_serving(MLA_ARCH, "phase-9")
 
-    print(f"[10/11] VLM serving: full-width {VLM_ARCH} through build_engine, "
+    print(f"[10/12] VLM serving: full-width {VLM_ARCH} through build_engine, "
           f"its patches and the packed quantized decode cache ({elapsed()})")
     vlm_serving = phase_family_serving(VLM_ARCH, "phase-10", vlm_checks)
 
-    print(f"[11/11] encoder-decoder: full-width {ENCDEC_ARCH}'s encode, "
+    print(f"[11/12] encoder-decoder: full-width {ENCDEC_ARCH}'s encode, "
           f"prefill and decode ({elapsed()})")
     encdec = phase_encdec()
+
+    print(f"[12/12] launch tooling: dry runs on the fake production mesh, "
+          f"the mesh path on the card, the step counter ({elapsed()})")
+    launch = phase_launch(smi, scan_kernel)
     print(f"  all phases passed ({elapsed()})")
 
     entries = []
@@ -2329,6 +2648,10 @@ def main() -> int:
     counts = {**fused["launches"], **mamba["launches"],
               "selective_scan_bwd": mamba_training["full_width"]["launches"][
                   "selective_scan_bwd"]}
+    # the scan's main paths: phase 5's serving and phase 12's mesh prefill
+    by_phase = {"selective_scan": {"5": counts["selective_scan"],
+                                   "12": launch["scan_launches"]}}
+    counts["selective_scan"] += launch["scan_launches"]
     for ename, kname, row, err, count in cases:
         entries.append({
             "name": ename,
@@ -2343,10 +2666,13 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
         })
+        if count in by_phase:
+            entries[-1]["launches_by_phase"] = by_phase[count]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "device": name, "torch": torch.__version__,
+        "total_memory": total,
         "build_s": build_s, "kernel_rows": kernel_rows,
         "timed_rows": {k: v[0] for k, v in timed_rows.items()},
         "fused_split_max_abs_err": fused_split_err,
@@ -2356,7 +2682,8 @@ def main() -> int:
         "fused": fused, "mamba": mamba, "training": training,
         "mamba_training": mamba_training, "moe_serving": moe_serving,
         "mla_serving": mla_serving, "vlm_serving": vlm_serving,
-        "encdec": encdec, "elapsed_s": time.perf_counter() - T_START},
+        "encdec": encdec, "launch": launch,
+        "elapsed_s": time.perf_counter() - T_START},
         indent=1, default=float))
     (out_dir / "fused_calibration.json").write_text(
         json.dumps(fused["calibration"], indent=2))
@@ -2401,6 +2728,20 @@ def main() -> int:
     print(json.dumps({"mla_serving": family_line(mla_serving, smi)}))
     print(json.dumps({"vlm_serving": family_line(vlm_serving, smi)}))
     print(json.dumps({"encdec": encdec_line(encdec, smi)}))
+    print(json.dumps({"launch": {
+        "card": smi, "dryrun": [
+            {k: r[k] for k in ("arch", "shape", "mesh", "flops_per_chip",
+                               "hbm_bytes_per_chip",
+                               "collective_bytes_per_chip", "bottleneck",
+                               "analytic_peak_bytes", "fits_hbm", "step_s")}
+            for r in launch["dryrun"]],
+        **{k: launch[k] for k in (
+            "ep_max_rel_err", "ep_calls", "decode_ms_mesh", "decode_ms_plain",
+            "counter_flops_card", "counter_flops_meta", "decode_step_ms",
+            "measured_model_flops_share", "scan_launches",
+            "mamba_logits_bit_equal")},
+        "roofline_fraction": launch["roofline"]["roofline_fraction"],
+        "roofline_bottleneck": launch["roofline"]["bottleneck"]}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

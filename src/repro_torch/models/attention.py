@@ -30,6 +30,12 @@ here the decode write goes into the given cache tensors in place (the
 returned dict holds the same tensors), which saves a copy of the cache on
 every step. Attention itself is plain matmul and softmax, as the
 reference's is plain jnp and no Pallas kernel.
+
+Under a mesh the projections run on DTensors and ``constrain`` places q,
+k and the decode cache at the reference's sites; the attention cores
+(``_attend``, ``_mla_attend``) run on each rank's local shards: over
+local heads, or, against a cache whose slots are sharded, context-parallel
+with the softmax's max and sum all-reduced over the slots' shards.
 """
 from __future__ import annotations
 
@@ -37,7 +43,14 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from repro_torch.configs.base import AttnKind, ModelConfig
+from repro_torch.launch.sharding import (
+    _axis_size, constrain, on_local_shards, pin_grad, replicated,
+    resolve_spec, unshard_unless_divides,
+)
 from repro_torch.models.layers import Params, apply_rope, rmsnorm
 
 NEG_INF = -1e30
@@ -85,6 +98,13 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
 # ---------------------------------------------------------------------------
 # core GQA math
 # ---------------------------------------------------------------------------
+
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd); a DTensor sharded over more parts
+    than ``n`` divides is replicated along that dim first."""
+    b, s, _ = t.shape
+    return unshard_unless_divides(t, -1, n).reshape(b, s, n, hd)
+
 
 def _gqa_scores_out(q, k, v, mask):
     """q: (B,S,H,hd), k/v: (B,T,Kv,hd); mask: broadcastable to (B,1,1,S,T)."""
@@ -140,6 +160,96 @@ def _chunked_gqa(q, k, v, causal: bool, chunk: int = FLASH_CHUNK):
     return torch.cat(outs, dim=1).reshape(b, s, h, hd)
 
 
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd); on a DTensor the gradient is kept
+    at the forward's placements, so the backward's split of the merged dim
+    never meets a shard count that H does not divide."""
+    b, s = out.shape[:2]
+    return pin_grad(out.reshape(b, s, -1))
+
+
+def _attend(q, k, v, mask, causal: bool = True):
+    """The GQA attention core: ``_gqa_scores_out`` over ``mask``, or the
+    query-chunked ``_chunked_gqa`` where ``mask`` is None.
+
+    Plain tensors go straight to it. DTensors run it on each rank's local
+    shards, where DTensor cannot flatten the sharded batch and head dims
+    an einsum's product flattens: over local heads when the keys' sequence
+    is whole (the heads split over "model" when the KV heads divide, else
+    replicated), or, when the keys' sequence is sharded (the decode cache,
+    "seq_kv"), context-parallel: each rank attends over its own slots and
+    the softmax's max and sum and the output are all-reduced over the
+    sequence's shards."""
+    if not isinstance(q, DTensor) and not isinstance(k, DTensor):
+        if mask is None:
+            return _chunked_gqa(q, k, v, causal)
+        return _gqa_scores_out(q, k, v, mask)
+    mesh = (k if isinstance(k, DTensor) else q).device_mesh
+    if isinstance(k, DTensor) and any(p.is_shard(1) for p in k.placements):
+        return _attend_context_parallel(q, k, v, mask)
+    heads = "model"
+    spec = resolve_spec(("model",))
+    if spec is None or k.shape[2] % _axis_size(mesh, spec[0]):
+        heads = None
+    qkv = ("data", None, heads, None)
+    if mask is None:
+        return on_local_shards(lambda q, k, v: (_chunked_gqa(q, k, v,
+                                                             causal),),
+                               (qkv, qkv, qkv), (0,), q, k, v)[0]
+    m_log = (("data",) if mask.ndim and mask.shape[0] > 1 else (None,)) \
+        + (None,) * (mask.ndim - 1) if mask.ndim else ()
+    return on_local_shards(lambda q, k, v, m: (_gqa_scores_out(q, k, v, m),),
+                           (qkv, qkv, qkv, m_log), (0,), q, k, v, mask)[0]
+
+
+def _attend_context_parallel(q, k, v, mask):
+    """One query position against a cache whose slots are sharded: each
+    rank scores its own slots, the max and the sum of the softmax are
+    all-reduced over the slots' shards, and so are the weighted values."""
+    mesh = k.device_mesh
+    seq_dims = [i for i, p in enumerate(k.placements) if p.is_shard(1)]
+    bat_dims = [i for i, p in enumerate(k.placements) if p.is_shard(0)]
+    rep = [Replicate()] * mesh.ndim
+
+    def place(t, dims_to):
+        pl = list(rep)
+        for i, d in dims_to:
+            pl[i] = Shard(d)
+        if not isinstance(t, DTensor):
+            t = replicated(t, mesh)
+        return t.redistribute(mesh, pl).to_local()
+
+    batch = [(i, 0) for i in bat_dims]
+    ql = place(q, batch)
+    kl = place(k, batch + [(i, 1) for i in seq_dims])
+    vl = place(v, batch + [(i, 1) for i in seq_dims])
+    if mask.ndim:                   # (B or 1, 1, 1, 1, C): its slots too
+        mb = batch if mask.shape[0] > 1 else []
+        ml = place(mask, mb + [(i, mask.ndim - 1) for i in seq_dims])
+    else:                           # a scalar (cross-attention): no mask
+        ml = place(mask, [])
+
+    def reduce(t, op):
+        for i in seq_dims:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
+    b, s, h, hd = ql.shape
+    kv = kl.shape[2]
+    qr = ql.reshape(b, s, kv, h // kv, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qr, kl).to(torch.float32)
+    scores = scores * (hd ** -0.5) + ml
+    top = reduce(scores.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - top)
+    p = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(vl.dtype)
+    out = reduce(torch.einsum("bkgst,btkh->bskgh", p, vl), "sum")
+    out = out.reshape(b, s, h, hd)
+    pl = list(rep)
+    for i in bat_dims:
+        pl[i] = Shard(0)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 def _is_scalar(i: Index) -> bool:
     return not torch.is_tensor(i) or i.ndim == 0
 
@@ -161,7 +271,23 @@ def _write_cache(buf: torch.Tensor, new: torch.Tensor,
 
     buf: (B, C, ...); new: (B, 1, ...); cur_index scalar or (B,) int. A
     scalar slot past the end is clamped to the last one, as the
-    reference's ``dynamic_update_slice`` clamps it."""
+    reference's ``dynamic_update_slice`` clamps it. A DTensor's slot dim
+    may be sharded, and a slice of a sharded dim is no view to write
+    through: there the new row is selected in at its slot, elementwise,
+    and the whole buffer copied in place."""
+    if isinstance(buf, DTensor):
+        c = buf.shape[1]
+        kj = torch.arange(c, device=buf.device)
+        if _is_scalar(cur_index):
+            hit = (kj == torch.clamp(torch.as_tensor(cur_index), 0, c - 1)
+                   if torch.is_tensor(cur_index)
+                   else kj == min(max(int(cur_index), 0), c - 1))
+            hit = hit.reshape((1, c) + (1,) * (buf.ndim - 2))
+        else:
+            hit = (kj[None, :] == cur_index[:, None]).reshape(
+                (buf.shape[0], c) + (1,) * (buf.ndim - 2))
+        buf.copy_(torch.where(hit, new.to(buf.dtype), buf))
+        return buf
     if _is_scalar(cur_index):
         slot = min(max(int(cur_index), 0), buf.shape[1] - 1)
         buf[:, slot] = new[:, 0].to(buf.dtype)
@@ -190,7 +316,7 @@ def attention_fwd(
         return mla_fwd(p, cfg, x, positions, cache, cur_index)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    q = _heads(x @ p["wq"], cfg.n_heads, hd)
 
     if kv_source is not None:
         # cross-attention; a cache, when given, holds the encoder's K/V
@@ -198,38 +324,41 @@ def attention_fwd(
             k, v = cache["k"], cache["v"]
         else:
             t = kv_source.shape[1]
-            k = (kv_source @ p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
-            v = (kv_source @ p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+            k = _heads(kv_source @ p["wk"], cfg.n_kv_heads, hd)
+            v = _heads(kv_source @ p["wv"], cfg.n_kv_heads, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        out = _gqa_scores_out(q, k, v, torch.zeros((), device=x.device))
-        return out.reshape(b, s, -1) @ p["wo"], {"k": k, "v": v}
+        out = _attend(q, k, v, torch.zeros((), device=x.device))
+        return _merge_heads(out) @ p["wo"], {"k": k, "v": v}
 
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    k = _heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = _heads(x @ p["wv"], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    q = constrain(q, ("data", None, "model", None))
+    k = constrain(k, ("data", None, "model", None))
 
     decode = cache is not None and cur_index is not None and s == 1
     if decode:
         cap = cache["k"].shape[1]
         ck = _write_cache(cache["k"], k, cur_index)
         cv = _write_cache(cache["v"], v, cur_index)
-        out = _gqa_scores_out(q, ck, cv, _decode_mask(cur_index, cap,
-                                                      x.device))
-        return out.reshape(b, 1, -1) @ p["wo"], {"k": ck, "v": cv}
+        ck = constrain(ck, ("data", "seq_kv", "model", None))
+        cv = constrain(cv, ("data", "seq_kv", "model", None))
+        out = _attend(q, ck, cv, _decode_mask(cur_index, cap, x.device))
+        return _merge_heads(out) @ p["wo"], {"k": ck, "v": cv}
 
     if s >= FLASH_THRESHOLD:
-        out = _chunked_gqa(q, k, v, causal)
+        out = _attend(q, k, v, None, causal=causal)
     else:
         mask = (_causal_mask(s, s, x.device) if causal
                 else torch.zeros((), device=x.device))
-        out = _gqa_scores_out(q, k, v, mask)
+        out = _attend(q, k, v, mask)
     new_cache = {"k": k, "v": v}  # prefill artifact
-    return out.reshape(b, s, -1) @ p["wo"], new_cache
+    return _merge_heads(out) @ p["wo"], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +423,9 @@ def attention_fwd_quantized(p: Params, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(f"quantized decode takes one token, not {s}")
     hd = cfg.resolved_head_dim
     bits = 8 // (hd // cache["k_packed"].shape[-1])   # from the packing
-    q = (x @ p["wq"]).reshape(b, 1, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, 1, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, 1, cfg.n_kv_heads, hd)
+    q = _heads(x @ p["wq"], cfg.n_heads, hd)
+    k = _heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = _heads(x @ p["wv"], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -307,12 +436,19 @@ def attention_fwd_quantized(p: Params, cfg: ModelConfig, x: torch.Tensor,
         for part, val in zip(("packed", "scale", "zero"),
                              _quant_token(new, bits)):
             _write_cache(cache[f"{name}_{part}"], val, cur_index)
-    kd, vd = (_dequant_cache(cache[f"{n}_packed"], cache[f"{n}_scale"],
-                             cache[f"{n}_zero"], bits, x.dtype)
-              for n in ("k", "v"))
+    # keep the whole unpack chain sequence-sharded, as the reference does
+    spec = ("data", "seq_kv", "model", None)
+    kd = _dequant_cache(constrain(cache["k_packed"], spec),
+                        constrain(cache["k_scale"], spec),
+                        constrain(cache["k_zero"], spec), bits, x.dtype)
+    vd = _dequant_cache(constrain(cache["v_packed"], spec),
+                        constrain(cache["v_scale"], spec),
+                        constrain(cache["v_zero"], spec), bits, x.dtype)
+    kd = constrain(kd, spec)
+    vd = constrain(vd, spec)
     mask = _decode_mask(cur_index, kd.shape[1], x.device)
-    out = _gqa_scores_out(q, kd, vd, mask)
-    return out.reshape(b, 1, -1) @ p["wo"], cache
+    out = _attend(q, kd, vd, mask)
+    return _merge_heads(out) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +470,7 @@ def mla_fwd(
                            m.v_head_dim, m.kv_lora_rank)
     scale = (nope + rope_d) ** -0.5
 
-    q = (x @ p["wq"]).reshape(b, s, h, nope + rope_d)
+    q = _heads(x @ p["wq"], h, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -342,8 +478,8 @@ def mla_fwd(
     kr_new = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]              # (B,S,rope)
 
-    w_uk = p["w_uk"].reshape(r, h, nope)
-    w_uv = p["w_uv"].reshape(r, h, vd)
+    w_uk = unshard_unless_divides(p["w_uk"], 1, h).reshape(r, h, nope)
+    w_uv = unshard_unless_divides(p["w_uv"], 1, h).reshape(r, h, vd)
 
     decode = cache is not None and cur_index is not None and s == 1
     if decode:
@@ -365,17 +501,41 @@ def mla_fwd(
     # full (train / prefill): the decompressed form
     k_nope = torch.einsum("bsr,rhn->bshn", ckv_new, w_uk)
     v = torch.einsum("bsr,rhv->bshv", ckv_new, w_uv)
-    if s >= FLASH_THRESHOLD:
-        out = _chunked_mla(q_nope, q_rope, k_nope, kr_new, v, scale)
-    else:
-        sc = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
-              + torch.einsum("bshd,btd->bhst", q_rope, kr_new))
-        sc = (sc.to(torch.float32) * scale
-              + _causal_mask(s, s, x.device)[:, :, 0])
-        pr = torch.softmax(sc, dim=-1).to(x.dtype)
-        out = torch.einsum("bhst,bthv->bshv", pr, v)
+    out = _mla_attend(q_nope, q_rope, k_nope, kr_new, v, scale)
     new_cache = {"ckv": ckv_new, "krope": kr_new}
-    return out.reshape(b, s, -1) @ p["wo"], new_cache
+    return _merge_heads(out) @ p["wo"], new_cache
+
+
+def _mla_core(q_nope, q_rope, k_nope, k_rope, v, scale):
+    """Causal MLA attention of the decompressed form: query-chunked from
+    ``FLASH_THRESHOLD`` tokens on."""
+    s = q_nope.shape[1]
+    if s >= FLASH_THRESHOLD:
+        return _chunked_mla(q_nope, q_rope, k_nope, k_rope, v, scale)
+    sc = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+          + torch.einsum("bshd,btd->bhst", q_rope, k_rope))
+    sc = (sc.to(torch.float32) * scale
+          + _causal_mask(s, s, q_nope.device)[:, :, 0])
+    pr = torch.softmax(sc, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthv->bshv", pr, v)
+
+
+def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, scale):
+    """``_mla_core``; DTensors on each rank's local shards, as
+    ``_attend`` runs GQA's: the batch over "data", the heads over "model"
+    where they divide it (the shared rope key replicated over "model")."""
+    if not isinstance(q_nope, DTensor):
+        return _mla_core(q_nope, q_rope, k_nope, k_rope, v, scale)
+    spec = resolve_spec(("model",))
+    heads = "model"
+    if spec is None or q_nope.shape[2] % _axis_size(q_nope.device_mesh,
+                                                     spec[0]):
+        heads = None
+    bshd = ("data", None, heads, None)
+    return on_local_shards(
+        lambda *a: (_mla_core(*a, scale),),
+        (bshd, bshd, bshd, ("data", None, None), bshd), (0,),
+        q_nope, q_rope, k_nope, k_rope, v)[0]
 
 
 def _chunked_mla(q_nope, q_rope, k_nope, k_rope, v, scale,

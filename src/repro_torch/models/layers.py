@@ -11,6 +11,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import constrain
+
 Params = Dict[str, Any]
 
 
@@ -62,6 +64,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def mlp_fwd(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    h = constrain(h, ("data", None, "model"))
     return h @ p["wo"]
 
 

@@ -21,6 +21,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.launch.sharding import (
+    constrain, on_local_shards, reduce_partial,
+)
 from repro_torch.models.layers import Params
 
 # leaves kept in f32 whatever the param dtype, as the reference does
@@ -80,11 +83,44 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device,
     }
 
 
+# logical specs of the scan's operands: (B, S, d_inner) and (B, S, N)
+_BSD = ("data", None, "model")
+_BSN = ("data", None, None)
+
+
+class _MetaScan(torch.autograd.Function):
+    """The scan's shapes on the meta device, where no kernel and no plain
+    loop can run (the dry run holds no data): y (B, S, D) and hT (B, D, N)
+    in f32, and under autograd gradients of the inputs' shapes, so the
+    layers around the scan run forward and backward as they would."""
+
+    @staticmethod
+    def forward(ctx, dt, x, bs, cs, a, h0):
+        ctx.shapes = [(t.shape, t.dtype) for t in (dt, x, bs, cs, a, h0)]
+        return (dt.new_empty(dt.shape, dtype=torch.float32),
+                h0.new_empty(h0.shape, dtype=torch.float32))
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        return tuple(torch.empty(s, dtype=d, device="meta")
+                     for s, d in ctx.shapes)
+
+
+def _scan(dt, x, bs, cs, a, h0):
+    """The selective scan of plain (local) tensors: the kernel's ops on
+    CUDA and the CPU, ``_MetaScan`` on the meta device."""
+    if dt.is_meta:
+        return _MetaScan.apply(dt, x, bs, cs, a, h0)
+    return scan_ops.selective_scan(dt, x, bs, cs, a, h0)
+
+
 def _ssm_params(p: Params, cfg: ModelConfig, xc: torch.Tensor):
     """xc: (..., d_inner) post-conv activations -> (dt, B, C) selective
     params, f32."""
     n, r = cfg.ssm.d_state, cfg.resolved_dt_rank
-    proj = xc @ p["x_proj"]                                  # (..., r + 2n)
+    # (..., r + 2n); under a mesh a sum over d_inner's shards, reduced
+    # here before it is split
+    proj = reduce_partial(xc @ p["x_proj"])
     dt = proj[..., :r] @ p["dt_proj"] + p["dt_bias"]
     dt = F.softplus(dt.to(torch.float32))                    # (..., d_inner)
     b_sel = proj[..., r:r + n].to(torch.float32)
@@ -104,6 +140,7 @@ def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     s = cfg.ssm
     b, seq, _ = x.shape
     xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)              # (B, S, d_in)
+    xs = constrain(xs, ("data", None, "model"))
 
     if decode:
         if seq != 1 or cache is None:
@@ -137,8 +174,12 @@ def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     h0 = (torch.zeros((b, cfg.d_inner, s.d_state), dtype=torch.float32,
                       device=x.device)
           if cache is None else cache["ssm"])
-    y, h_t = scan_ops.selective_scan(dt, xc.to(torch.float32), b_sel, c_sel,
-                                     a, h0)
+    # under a mesh the scan runs on each rank's local channels: the kernel
+    # reads raw pointers, so no DTensor reaches it
+    y, h_t = on_local_shards(
+        _scan,
+        (_BSD, _BSD, _BSN, _BSN, ("model", None), ("data", "model", None)),
+        (0, 5), dt, xc.to(torch.float32), b_sel, c_sel, a, h0)
     y = y + p["d_skip"] * xc.to(torch.float32)
     y = y.to(x.dtype) * F.silu(z)
     new_cache = {"conv": padded[:, -(s.d_conv - 1):], "ssm": h_t}

@@ -23,6 +23,15 @@ class Model:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         return transformer.init_params(gen, self.cfg)
 
+    def init_shapes(self) -> Params:
+        """The parameters as ``meta`` tensors: shapes and dtypes, no
+        allocation (the dry run's path)."""
+        return transformer._map_leaves(
+            lambda path, shape: torch.empty(
+                shape, dtype=transformer.param_dtype(self.cfg, path[-1]),
+                device="meta"),
+            transformer.param_shapes(self.cfg))
+
     def forward(self, params, batch, remat: bool = False):
         logits, _aux = transformer.forward_train(params, self.cfg, batch,
                                                  remat=remat)

@@ -17,6 +17,16 @@ Router: softmax over the logits in f32, top-k, the top-k weights
 renormalised. Ties go to the lower expert index, as ``jax.lax.top_k``
 breaks them: a stable descending sort takes the place of ``topk``, whose
 order on ties torch leaves open.
+
+Under a mesh (``launch.sharding.use_mesh``) the model calls
+``moe_fwd_ep``, the reference's explicit expert parallelism: each "model"
+rank computes its own experts over its local, replicated token block, and
+one all-reduce over "model" combines them. Where that does not divide (the
+reference's own rule), ``moe_fwd`` on DTensors runs the reference's
+buffered dispatch, (E, C, d), with its sharding constraints, on
+replicated operands. Both take static shapes (a buffer of C rows an
+expert, empty rows included), so they also run on the dry run's fake
+tensors.
 """
 from __future__ import annotations
 
@@ -24,8 +34,11 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import sharding as shlib
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.layers import Params, mlp_fwd
 
 CAPACITY_FACTOR = 1.25
@@ -82,11 +95,176 @@ def dispatch(idx: torch.Tensor, cap: int
     return order, pos < cap
 
 
+def _balance_loss(logits: torch.Tensor, idx: torch.Tensor, e: int,
+                  k: int) -> torch.Tensor:
+    """E · Σ_e frac_tokens_e · frac_probs_e (f32)."""
+    probs = torch.softmax(logits, dim=-1)
+    onehot = F.one_hot(idx, e).to(torch.float32).sum(dim=1)       # (T, E)
+    return e * torch.sum(onehot.mean(dim=0) / k * probs.mean(dim=0))
+
+
+def _expert_ffn(wi_g, wi_u, wo, h):
+    """The stacked experts over their (E, C, d) buffer rows."""
+    return torch.bmm(F.silu(torch.bmm(h, wi_g)) * torch.bmm(h, wi_u), wo)
+
+
+def _buffered(xf, w, idx, e_lo: int, e_loc: int, cap: int, wi_g, wi_u, wo,
+              constrained: bool = False) -> torch.Tensor:
+    """The reference's sort-based dispatch into an (e_loc, cap, d) buffer
+    for experts [e_lo, e_lo + e_loc): slots of other experts, and slots
+    past an expert's ``cap``, go to a dropped row. Returns the (T, d)
+    weighted sum of the kept slots' outputs (partial over the experts
+    outside the range). ``constrained`` applies the reference's
+    ``moe_fwd`` sharding constraints."""
+    t, d = xf.shape
+    k = idx.shape[1]
+    flat_e = idx.reshape(-1)
+    flat_tok = torch.arange(t, device=xf.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sw = flat_e[order], flat_tok[order], w.reshape(-1)[order]
+    first = torch.searchsorted(se.contiguous(), se.contiguous(), side="left")
+    pos = torch.arange(t * k, device=xf.device) - first
+    my_e = se - e_lo
+    mine = (my_e >= 0) & (my_e < e_loc) & (pos < cap)
+    target = torch.where(mine, my_e * cap + pos, e_loc * cap)
+
+    xs_sorted = xf[st]                                         # (T*k, d)
+    if constrained:
+        xs_sorted = constrain(xs_sorted, ("data", None))
+    buf = xf.new_zeros((e_loc * cap + 1, d)).index_copy(0, target, xs_sorted)
+    buf = buf[:-1].reshape(e_loc, cap, d)
+    if constrained:
+        buf = constrain(buf, ("model", "data", None))
+    out_buf = _expert_ffn(wi_g, wi_u, wo, buf)                 # (E, C, d)
+    if constrained:
+        out_buf = constrain(out_buf, ("model", "data", None))
+    flat_out = out_buf.reshape(e_loc * cap, d)
+    gathered = torch.where(mine[:, None],
+                           flat_out[torch.clamp(target, 0, e_loc * cap - 1)],
+                           0)
+    if constrained:
+        gathered = constrain(gathered, ("data", None))
+    contrib = gathered * sw[:, None].to(xf.dtype)
+    out = xf.new_zeros((t, d)).index_add(0, st, contrib)       # segment sum
+    if constrained:
+        out = constrain(out, ("data", None))
+    return out
+
+
+def _moe_fwd_mesh(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  capacity_factor: float, dropless: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_fwd`` of DTensors: every rank runs the reference's buffered
+    dispatch over all E experts on replicated operands (DTensor has no
+    sharding rule for ``searchsorted``), its five constraints in place on
+    the local tensors."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t, k, e = b * s, m.top_k, m.n_routed_experts
+    cap = capacity(t, k, e, capacity_factor, dropless)
+
+    def local(x, router, wi_g, wi_u, wo):
+        xf = x.reshape(t, d)
+        logits = xf.to(torch.float32) @ router.to(torch.float32)
+        w, idx = router_topk(logits, k)
+        out = _buffered(xf, w, idx, 0, e, cap, wi_g, wi_u, wo,
+                        constrained=True)
+        return out.reshape(b, s, d), _balance_loss(logits, idx, e, k)
+
+    ex = p["experts"]
+    out, aux = shlib.on_local_shards(
+        local, [(None,) * 3, (None,) * 2] + [(None,) * 3] * 3, (None, None),
+        x, p["router"], ex["wi_gate"], ex["wi_up"], ex["wo"])
+    if "shared" in p:
+        out = out + mlp_fwd(p["shared"], x)
+    return out.to(x.dtype), aux
+
+
+def moe_fwd_ep(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               capacity_factor: float = CAPACITY_FACTOR,
+               dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert-parallel MoE: local shards and one all-reduce (the
+    reference's ``shard_map`` form).
+
+    Within a TP block the token activations are replicated across the
+    "model" axis, and the experts are sharded across it, so dispatch needs
+    no cross-device token movement: every "model" rank filters its own
+    experts' slots out of its local, replicated block, computes them into
+    its (E/|model|, C, d) buffer, and one all-reduce over "model" (a
+    ``Partial`` placement redistributed to ``Replicate``, a
+    ``_c10d_functional.all_reduce``) sums the per-expert partial outputs,
+    in the residual dtype. The balance loss is averaged over "data".
+
+    Weights arrive replicated over "data": FSDP-trained experts are
+    all-gathered at the boundary, TP-only serving params move nothing.
+    Plain tensors count as replicated, and a plain ``x`` gets plain
+    results (the whole tensors). Falls back to ``moe_fwd`` when the experts
+    do not divide over "model" or the tokens and d_model do not divide
+    over "data" (the reference's rule).
+    """
+    rules = shlib._rules()
+    mesh = rules["mesh"]
+    amap = rules["map"]
+    d_ax, m_ax = amap.get("data"), amap.get("model")
+    sizes = shlib.mesh_shape(mesh).shape
+    m = cfg.moe
+    e, k = m.n_routed_experts, m.top_k
+    b, s, d = x.shape
+    mp = sizes[m_ax] if not isinstance(m_ax, tuple) else 0
+    d_names = d_ax if isinstance(d_ax, tuple) else (d_ax,)
+    dp = 1
+    for a in d_names:
+        dp *= sizes[a]
+    if mp == 0 or e % mp != 0 or (b * s) % dp != 0 or d % dp != 0:
+        return moe_fwd(p, cfg, x, capacity_factor, dropless)
+    e_loc = e // mp
+    t_loc = (b * s) // dp
+    cap = t_loc if dropless else int(max(1, -(-t_loc * k * capacity_factor
+                                              // e)))
+    plain = not isinstance(x, DTensor)
+    rep = [Replicate()] * mesh.ndim
+    names = shlib.mesh_shape(mesh).axis_names
+    # x: batch over data, replicated over model; the router replicated;
+    # the experts over model (EP only)
+    x_pl = shlib.placements(mesh, shlib.P(d_ax, None, None))
+    ex_pl = shlib.placements(mesh, shlib.P(m_ax, None, None))
+    split = shlib.split_dims_of(x_pl, ex_pl)
+    x_blk = shlib.local_shard(x, mesh, x_pl, split)
+    router = shlib.local_shard(p["router"], mesh, rep, split)
+    wi_g, wi_u, wo = (shlib.local_shard(p["experts"][n], mesh, ex_pl, split)
+                      for n in ("wi_gate", "wi_up", "wo"))
+    mi = mesh.get_local_rank(m_ax)
+
+    xf = x_blk.reshape(-1, d)
+    # routing in f32 through an explicit cast, as the reference's
+    logits = xf.to(torch.float32) @ router.to(torch.float32)
+    w, idx = router_topk(logits, k)
+    aux = _balance_loss(logits, idx, e, k)
+    part = _buffered(xf, w, idx, mi * e_loc, e_loc, cap, wi_g, wi_u, wo)
+
+    # combine across experts in the residual dtype: a partial sum over
+    # "model" reduced to a replicated one
+    part_pl = list(x_pl)
+    part_pl[names.index(m_ax)] = Partial()
+    out = DTensor.from_local(part.to(x_blk.dtype).reshape(x_blk.shape), mesh,
+                             part_pl, run_check=False).redistribute(mesh, x_pl)
+    aux_pl = [Partial("avg") if n in d_names else Replicate() for n in names]
+    aux = DTensor.from_local(aux, mesh, aux_pl,
+                             run_check=False).redistribute(mesh, rep)
+    if plain:
+        out, aux = out.full_tensor(), aux.to_local()
+    if "shared" in p:
+        out = out + mlp_fwd(p["shared"], x)
+    return out, aux
+
+
 def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
             capacity_factor: float = CAPACITY_FACTOR,
             dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux). aux is the Switch-style load-balance
     loss E · Σ_e frac_tokens_e · frac_probs_e (f32)."""
+    if isinstance(x, DTensor):
+        return _moe_fwd_mesh(p, cfg, x, capacity_factor, dropless)
     m = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, m.top_k, m.n_routed_experts
@@ -95,9 +273,7 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     with torch.profiler.record_function("moe_dispatch"):
         logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
         w, idx = router_topk(logits, k)
-        probs = torch.softmax(logits, dim=-1)
-        onehot = F.one_hot(idx, e).to(torch.float32).sum(dim=1)   # (T, E)
-        aux = e * torch.sum(onehot.mean(dim=0) / k * probs.mean(dim=0))
+        aux = _balance_loss(logits, idx, e, k)
 
         order, keep = dispatch(idx, capacity(t, k, e, capacity_factor,
                                              dropless))

@@ -45,6 +45,14 @@ encoder runs without it, as the reference's encoder scan does. The MoE
 layers' load-balance losses are summed over the layers in order, and
 training's MoE drops slots past each expert's capacity, as the
 reference's does; prefill and decode are dropless.
+
+Under a mesh (``launch.sharding.use_mesh``) the same code runs on
+DTensors: ``constrain`` at the reference's sites redistributes the
+activations, the MoE layers take ``moe_fwd_ep``, the embedding lookup is
+vocab-parallel on local shards (``_embed``), and prefill and decode write
+their DTensor caches elementwise (``_write_rows``,
+``attention._write_cache``). With no mesh, or on plain tensors, each of
+these is the plain code.
 """
 from __future__ import annotations
 
@@ -52,9 +60,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttnKind, FFNKind, LayerKind, ModelConfig
+from repro_torch.launch import sharding as shlib
+from repro_torch.launch.sharding import constrain
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -276,10 +287,10 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
         else:
             out, rows = attn_lib.attention_fwd(bp["attn"], cfg, h, positions)
             if cj is not None:
-                s = x.shape[1]
                 for name, val in rows.items():
-                    cj[name][:, :s] = val.to(cj[name].dtype)
+                    _write_rows(cj[name], val)
     x = x + out
+    x = constrain(x, ("data", None, None))
 
     cc = None if cache_j is None else cache_j.get("cross")
     if "cross" in bp and (enc_out is not None or cc is not None):
@@ -300,12 +311,35 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
     if cfg.ffn_kind != FFNKind.NONE:
         h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
         if "ffn_moe" in bp:
-            out, aux = moe_lib.moe_fwd(bp["ffn_moe"], cfg, h,
-                                       dropless=moe_dropless or decode)
+            moe_impl = (moe_lib.moe_fwd_ep if shlib._rules() is not None
+                        else moe_lib.moe_fwd)
+            out, aux = moe_impl(bp["ffn_moe"], cfg, h,
+                                dropless=moe_dropless or decode)
         else:
             out = mlp_fwd(bp["ffn"], h)
         x = x + out
+        x = constrain(x, ("data", None, None))
     return x, aux
+
+
+def _write_rows(buf: torch.Tensor, val: torch.Tensor) -> None:
+    """Slots [0, S) of the (B, C, ...) cache ``buf`` take the prefill's
+    (B, S, ...) rows ``val``, in place. A DTensor's slot dim may be
+    sharded, and a slice of a sharded dim is no view to write through:
+    there the rows are selected in, elementwise, and the whole buffer
+    copied in place."""
+    s, c = val.shape[1], buf.shape[1]
+    val = val.to(buf.dtype)
+    if not isinstance(buf, DTensor):
+        buf[:, :s] = val
+    elif s == c:
+        buf.copy_(val)
+    else:
+        pad = torch.zeros((val.shape[0], c - s) + tuple(val.shape[2:]),
+                          dtype=buf.dtype, device=buf.device)
+        hit = (torch.arange(c, device=buf.device) < s).reshape(
+            (1, c) + (1,) * (buf.ndim - 2))
+        buf.copy_(torch.where(hit, torch.cat([val, pad], dim=1), buf))
 
 
 def _with_aux(total: torch.Tensor, aux: Optional[torch.Tensor]):
@@ -411,16 +445,49 @@ def _encode_batch(params: Params, cfg: ModelConfig,
 # embeddings and heads
 # ---------------------------------------------------------------------------
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens``.
+
+    A DTensor table is looked up vocab-parallel on local shards (DTensor's
+    own rules for an index and for ``F.embedding`` fail on a sharded
+    vocab): each rank keeps its rows of the vocab, gathers the rest of
+    their columns, takes the tokens that fall in its rows (zeros for the
+    others) and returns a partial sum over the vocab's shards, which the
+    next constraint all-reduces."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    if not isinstance(tokens, DTensor):
+        tokens = shlib.replicated(tokens, mesh)
+    t_pl = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    k_pl = [Replicate() if i in vocab or not p.is_shard(0) else p
+            for i, p in enumerate(tokens.placements)]
+    split = shlib.split_dims_of(t_pl, k_pl)
+    rows = shlib.local_shard(table, mesh, t_pl, split)
+    toks = tokens.redistribute(mesh, k_pl).to_local()
+    chunk = 0                           # this rank's block of the vocab
+    coord = mesh.get_coordinate()
+    for i in vocab:
+        chunk = chunk * mesh.size(i) + coord[i]
+    lo = chunk * rows.shape[0]
+    hit = (toks >= lo) & (toks < lo + rows.shape[0])
+    out = torch.where(hit[..., None], rows[torch.where(hit, toks - lo, 0)],
+                      0)
+    pl = [Partial() if i in vocab else k_pl[i] for i in range(mesh.ndim)]
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 def embed_inputs(params: Params, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token embeddings; with patches in the config and in ``batch``, the
     projected patch embeddings (B, n_patches, d) go in front of them."""
     dtype = _dtype(cfg.dtype)
-    tok = params["embed"][batch["tokens"]].to(dtype)
+    tok = _embed(params["embed"], batch["tokens"]).to(dtype)
     if cfg.n_patches and "patch_embeds" in batch:
         patches = batch["patch_embeds"].to(dtype) @ params["patch_proj"]
         tok = torch.cat([patches, tok], dim=1)
-    return tok
+    return constrain(tok, ("data", None, None))
 
 
 def _head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -430,7 +497,7 @@ def _head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head_matrix(params, cfg)
+    return constrain(x @ _head_matrix(params, cfg), ("data", None, "model"))
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -475,15 +542,27 @@ def chunked_ce_loss(params: Params, cfg: ModelConfig, x: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.long, device=x.device)
     for off in range(0, s, chunk):
         logits = (x[:, off:off + chunk] @ head).to(torch.float32)
+        logits = constrain(logits, ("data", None, "model"))
         lab = labels[:, off:off + chunk]
         mask = lab != ignore_index
         safe = torch.where(mask, lab, 0).long()
         logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, safe[..., None])[..., 0]
+        gold = _gold(logits, safe)
         nll = torch.where(mask, logz - gold, 0.0)
         nll_sum = nll_sum + nll.sum()
         cnt = cnt + mask.sum()
     return nll_sum / torch.clamp(cnt, min=1)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit at its label. On a DTensor the vocab dim may
+    be sharded: the label's column is selected elementwise and summed over
+    the vocab (a partial sum over its shards, the same value), where a
+    gather along a sharded dim has no working DTensor rule."""
+    if not isinstance(logits, DTensor):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -494,6 +573,25 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                           enc_out=_encode_batch(params, cfg, batch))
     loss = chunked_ce_loss(params, cfg, x, batch["labels"], chunk=loss_chunk)
     return loss + aux_weight * aux
+
+
+def _distribute_cache(cache: Params) -> Params:
+    """A prefill's zeroed cache as DTensors on the active mesh: the batch
+    dim over "data" where it divides, the rest replicated (the stacked
+    leaves' batch dim follows their layer-group dim)."""
+    mesh = shlib._rules()["mesh"]
+
+    def place(bdim):
+        def one(_, leaf):
+            logical = [None] * leaf.ndim
+            logical[bdim] = "data"
+            spec = shlib.guarded_spec(mesh, leaf.shape,
+                                      shlib.resolve_spec(logical))
+            return shlib.distribute(leaf, shlib.NamedSharding(mesh, spec))
+        return one
+
+    return {"prefix": _map_leaves(place(0), cache["prefix"]),
+            "stack": _map_leaves(place(1), cache["stack"])}
 
 
 @torch.no_grad()
@@ -514,6 +612,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     enc_out = _encode_batch(params, cfg, batch)
     cache = init_cache(cfg, b, capacity, x.device,
                        enc_len=0 if enc_out is None else enc_out.shape[1])
+    if isinstance(x, DTensor):
+        cache = _distribute_cache(cache)
     x, _ = _run_stack(params, cfg, x, _positions(x), cache, None, enc_out,
                       decode=False, moe_dropless=moe_dropless)
     return lm_logits(params, cfg, x[:, -1:, :]), cache
@@ -530,10 +630,12 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     position of the new token (defaults to cur_index); differs from the
     slot when the cache holds a token-dropped entry. The cache is updated
     in place and returned."""
-    x = params["embed"][tokens].to(_dtype(cfg.dtype))
+    x = _embed(params["embed"], tokens).to(_dtype(cfg.dtype))
     b = tokens.shape[0]
     pos = cur_index if position is None else position
-    if attn_lib._is_scalar(pos):
+    if isinstance(pos, DTensor) and pos.ndim == 0:
+        positions = pos.to(torch.long).reshape(1, 1).expand(b, 1)
+    elif attn_lib._is_scalar(pos):
         positions = torch.full((b, 1), int(pos), dtype=torch.long,
                                device=x.device)
     else:

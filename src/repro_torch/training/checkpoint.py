@@ -1,4 +1,4 @@
-"""Checkpoint manager: atomic, checksummed, async, for one device.
+"""Checkpoint manager: atomic, checksummed, async.
 
 Counterpart of ``repro.training.checkpoint``, with its layout per step:
     <root>/step_<N>.tmp/            (written)
@@ -13,8 +13,12 @@ Counterpart of ``repro.training.checkpoint``, with its layout per step:
 A state is a tree of tensors (``training.tree``). numpy has no bfloat16, so
 a bf16 leaf is stored as its 16 bits (int16) and the manifest records its
 torch dtype; restore views the bits as bf16 again, bit-exact. Restore puts
-every leaf on the device the caller names. (Resharding onto another mesh is
-the reference's; on one device there is no mesh: ROADMAP §A9.)
+every leaf on the device the caller names, or, given a tree of shardings
+(``launch.sharding.NamedSharding`` on a DeviceMesh, as ``launch.specs``
+builds them), distributes each leaf onto its mesh: a checkpoint written
+on one mesh restores onto another (elastic restore). A DTensor leaf is
+saved whole (``full_tensor``, a collective every rank joins), and only
+rank 0 of an initialised process group writes.
 
 Fault-tolerance contract: writes never clobber the previous checkpoint; a
 crash mid-write leaves a ``.tmp`` dir that is ignored (and GC'd) on
@@ -32,6 +36,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import resolve_device
 from repro_torch.training import tree as tree_lib
@@ -48,6 +54,8 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A host copy of ``t`` (taken now, so later in-place steps do not
     reach it) and its torch dtype's name."""
     name = str(t.dtype).removeprefix("torch.")
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     host = t.detach().to("cpu", copy=True)
     if t.dtype in _AS_BITS:
         host = host.view(_AS_BITS[t.dtype])
@@ -73,6 +81,8 @@ class CheckpointManager:
              extra: Optional[Dict] = None) -> None:
         flat = _flatten(state)           # host copy happens sync (consistent)
         skeleton = tree_lib.unflatten(state, [None] * len(flat))
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return                       # rank 0 writes
         if self._thread is not None:
             self._thread.join()          # one in-flight write at a time
         if self.async_write:
@@ -126,12 +136,15 @@ class CheckpointManager:
         with open(p) as f:
             return int(f.read().strip())
 
-    def restore(self, step: Optional[int] = None,
-                device="cuda") -> Tuple[Any, Dict]:
+    def restore(self, step: Optional[int] = None, device="cuda",
+                shardings: Any = None) -> Tuple[Any, Dict]:
         """Returns (state, extra), every leaf on ``device`` (CUDA unless
-        asked). Raises ``IOError`` on a CRC mismatch before building any
-        tensor."""
-        dev = resolve_device(device)
+        asked), or, with ``shardings`` (a tree of the state's structure,
+        each leaf a ``NamedSharding`` on a DeviceMesh), each leaf a DTensor
+        of its sharding on its mesh's device: every rank keeps its own
+        shard of the leaf it read. Raises ``IOError`` on a CRC mismatch
+        before building any tensor."""
+        dev = None if shardings is not None else resolve_device(device)
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.root}")
@@ -153,10 +166,22 @@ class CheckpointManager:
             info = manifest["leaves"][_key(path)]
             t = torch.from_numpy(flat[_key(path)])
             dtype = getattr(torch, info["torch_dtype"])
-            return (t.view(dtype) if dtype in _AS_BITS else t).to(dev)
+            t = t.view(dtype) if dtype in _AS_BITS else t
+            return t if dev is None else t.to(dev)
 
         paths = [p for p, _ in tree_lib.flatten_with_paths(skeleton)]
-        return tree_lib.unflatten(skeleton, [tensor(p) for p in paths]), extra
+        if shardings is None:
+            return tree_lib.unflatten(skeleton,
+                                      [tensor(p) for p in paths]), extra
+
+        def place(path, s):
+            t = tensor(path).to(s.mesh.device_type)
+            return distribute_tensor(t, s.mesh, s.placements,
+                                     src_data_rank=None)
+
+        return tree_lib.unflatten(skeleton, [
+            place(p, s) for p, s in zip(paths, tree_lib.leaves(shardings),
+                                        strict=True)]), extra
 
     # -- gc ----------------------------------------------------------------------
     def _gc_old(self) -> None:

@@ -17,6 +17,14 @@ Two differences from the reference, both for memory:
     last dim, so a slice's codes and scales are those of the whole leaf, bit
     for bit: the reference's own "shard-local" argument.
 
+On a mesh (DTensor leaves) each rank updates its own shard of each leaf:
+the gradient is brought to the param's placements, the moments to the
+same shard (the int8 codes' block dim standing in for the param's last
+dim, which stays whole where its shards are not whole blocks), and the
+global norm sums each rank's squares over the shards. A slice of a
+sharded dim is no view to write through, so the update runs on the local
+tensors and writes back what had to move.
+
 Also the WSD (warmup-stable-decay) schedule used by MiniCPM, and a cosine one.
 """
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Any, Callable, NamedTuple, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.training import tree as tree_lib
 
@@ -140,16 +149,69 @@ def _rows(t: torch.Tensor, lead: int, rs):
     return t.view(-1, *t.shape[lead:])[rs[0]:rs[1]]
 
 
+def _sq_sum(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    leaf = 0
+    for rs in _row_slices(x):
+        part = _rows(x, x.ndim - 1, rs).to(torch.float32)
+        leaf = leaf + torch.sum(torch.square(part))
+    return leaf
+
+
 def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares; a DTensor leaf's squares
+    summed on each rank's shard, then over the shards."""
     total = 0
     for x in tree_lib.leaves(tree):
-        x = x.contiguous()
-        leaf = 0
-        for rs in _row_slices(x):
-            part = _rows(x, x.ndim - 1, rs).to(torch.float32)
-            leaf = leaf + torch.sum(torch.square(part))
-        total = total + leaf
+        if isinstance(x, DTensor):
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p.is_partial() else p for p in x.placements])
+            part = torch.as_tensor(_sq_sum(x.to_local()), dtype=torch.float32,
+                                   device=x.to_local().device)
+            total = total + DTensor.from_local(
+                part, x.device_mesh,
+                [Partial() if p.is_shard() else Replicate()
+                 for p in x.placements], run_check=False).full_tensor()
+        else:
+            total = total + _sq_sum(x)
     return torch.sqrt(total)
+
+
+def _plain(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _work_placements(p: DTensor, int8: bool):
+    """The placements an update of ``p`` runs at: ``p``'s own, but, for
+    int8 moments, its last dim whole where its shards are not whole
+    blocks. A Q8 leaf (lead + (blocks, 64 or 1)) at the same placements
+    holds the local shard's blocks: its block dim has the param's last
+    dim's index."""
+    mesh, last = p.device_mesh, p.ndim - 1
+    count = 1
+    for i, pl in enumerate(p.placements):
+        if pl.is_shard(last):
+            count *= mesh.size(i)
+    if not int8 or p.ndim == 0 or (p.shape[-1] // count) % BLOCK == 0:
+        return list(p.placements)
+    return [Replicate() if pl.is_shard(last) else pl for pl in p.placements]
+
+
+def _local(t: DTensor, placements, write_back: list) -> torch.Tensor:
+    """``t``'s local shard at ``placements``: its own storage when it is
+    placed so, else a copy that ``write_back`` copies back."""
+    placements = list(placements)
+    if list(t.placements) == placements:
+        return t.to_local()
+    mesh = t.device_mesh
+    loc = t.redistribute(mesh, placements).to_local()
+
+    def back():
+        t.to_local().copy_(DTensor.from_local(
+            loc, mesh, placements, run_check=False).redistribute(
+                mesh, t.placements).to_local())
+    write_back.append(back)
+    return loc
 
 
 def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
@@ -159,9 +221,9 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
     step = state.step + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = _lr_at(cfg, step)
-    b1c = 1 - cfg.b1 ** step.to(torch.float32)
-    b2c = 1 - cfg.b2 ** step.to(torch.float32)
+    lr = _plain(_lr_at(cfg, step))
+    b1c = _plain(1 - cfg.b1 ** step.to(torch.float32))
+    b2c = _plain(1 - cfg.b2 ** step.to(torch.float32))
 
     def upd(p, g, m, v):
         g = g.to(torch.float32) * clip
@@ -196,6 +258,17 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
     flat_v = tree_lib.leaves_up_to(params, state.v)
     with torch.no_grad():
         for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+            write_back: list = []
+            if isinstance(p, DTensor):
+                work = _work_placements(p, cfg.int8_state)
+                g = g.redistribute(p.device_mesh, work).to_local()
+                if cfg.int8_state:
+                    m, v = (Q8Tensor(_local(s.q, work, write_back),
+                                     _local(s.scale, work, write_back))
+                            for s in (m, v))
+                else:
+                    m, v = (_local(s, work, write_back) for s in (m, v))
+                p = _local(p, work, write_back)
             if not p.is_contiguous():
                 raise ValueError("adamw_update writes params in place: "
                                  "each must be contiguous")
@@ -207,6 +280,8 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
                 else:
                     mv = [_rows(s, lead, rs) for s in (m, v)]
                 upd(_rows(p, lead, rs), _rows(g, lead, rs), *mv)
+            for back in write_back:
+                back()
     return params, AdamWState(step, state.m, state.v)
 
 

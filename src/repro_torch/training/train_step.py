@@ -34,6 +34,14 @@ def init_train_state(model: Model, seed: int, opt_cfg: AdamWConfig,
     return TrainState(params, adamw_init(opt_cfg, params))
 
 
+def init_train_state_shapes(model: Model, opt_cfg: AdamWConfig
+                            ) -> TrainState:
+    """The train state on the ``meta`` device: shapes and dtypes, no
+    allocation (the dry run's path)."""
+    params = model.init_shapes()
+    return TrainState(params, adamw_init(opt_cfg, params))
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     accum_steps: int = 1, remat: bool = True):
     """batch leaves: (accum, per_step_batch, ...) when accum_steps > 1."""
