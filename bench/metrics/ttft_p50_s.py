@@ -1,0 +1,5 @@
+from bench.metrics import percentile
+
+
+def read(run):
+    return percentile(run.ttfts(), 50)
