@@ -156,8 +156,9 @@ stops the run with a non-zero exit when it fails:
              V-style for every other array; here all four), the summary
              must show hits, and one request (a miss) is profiled as in
              phase 3, with the device time and the host time of the MoE
-             dispatch (the ``moe_dispatch`` range of ``models/moe.py``:
-             routing, the sort and the wait for each expert's row count).
+             routing (the ``moe.route`` span of ``models/moe.py``, traced
+             by ``repro_torch.runtime.trace``: routing, the sort and the
+             wait for each expert's row count).
              A real prefill entry's compress and decompress through the
              kernel are bit-equal to the plain version. The decode step
              against the prefill is printed in bf16 and held in f32 within
@@ -256,6 +257,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 T_START = time.perf_counter()
 
+from repro_torch.runtime import trace  # noqa: E402
+
 HBM_BPS = 3.35e12            # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_OPS = 495e12            # H100 SXM dense TF32 tensor cores
@@ -274,7 +277,7 @@ MOE_ARCH = "olmoe-1b-7b"               # phase 8: MoE, GQA
 MLA_ARCH = "deepseek-v2-lite-16b"      # phase 9: MLA, MoE, a dense prefix
 VLM_ARCH = "internvl2-1b"              # phase 10: patches, GQA 14 / 2
 ENCDEC_ARCH = "seamless-m4t-large-v2"  # phase 11: encoder-decoder
-HOST_RANGES = ("moe_dispatch",)        # the port's record_function ranges
+HOST_RANGES = trace.SPANS              # the port's record_function ranges
 REPLACES = {"quantize": "src/repro/kernels/kivi/kernel.py:71",
             "dequantize": "src/repro/kernels/kivi/kernel.py:99",
             "decode_attn": "src/repro/kernels/decode_attn/kernel.py:133",
@@ -1079,8 +1082,8 @@ def summarize_profile(events, device_type) -> dict:
     activities' intervals) and idle share over the profiled window (the
     first to the last event, host or device), the ten device operations
     with the most total time, the selective scan's (forward, and backward
-    with the sum of its partials) and KIVI's totals, and the MoE dispatch's
-    (the ``moe_dispatch`` range of ``models/moe.py``: the device time of the
+    with the sum of its partials) and KIVI's totals, and the MoE routing's
+    (the ``moe.route`` span of ``models/moe.py``: the device time of the
     kernels launched inside it, and its host time, the wait for the
     experts' row counts included). The device-side copies of host ranges
     are not device activity and are left out."""
@@ -1102,30 +1105,37 @@ def summarize_profile(events, device_type) -> dict:
     top = sorted(total, key=total.get, reverse=True)[:10]
     share = lambda pat: sum(t for k, t in total.items() if re.search(pat, k))
     moe = [e for e in events
-           if e.name == "moe_dispatch" and e.device_type != device_type]
+           if e.name == "moe.route" and e.device_type != device_type]
     return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / window,
             "top": [{"name": k, "ms": total[k] / 1e3, "calls": calls[k]}
                     for k in top],
             "scan_ms": share(r"scan_(fwd|bwd)|sum_parts") / 1e3,
             "kivi_ms": share(r"quantize_(rows|cols)") / 1e3,
-            "moe_dispatch_ms": sum(e.device_time_total for e in moe) / 1e3,
-            "moe_dispatch_host_ms": sum(e.cpu_time_total for e in moe) / 1e3,
-            "moe_dispatch_calls": len(moe)}
+            "moe_route_ms": sum(e.device_time_total for e in moe) / 1e3,
+            "moe_route_host_ms": sum(e.cpu_time_total for e in moe) / 1e3,
+            "moe_route_calls": len(moe)}
 
 
 def profile_call(fn, label: str, shares=("scan", "kivi")):
     """``torch.profiler`` (CPU and CUDA activities) over ``fn()``,
     summarized by ``summarize_profile`` and printed with the shares of the
-    kernels named in ``shares``. Returns (the summary, ``fn``'s result)."""
+    kernels named in ``shares``. The port's tracer is on inside, so its
+    spans are ranges of the profile. Returns (the summary, ``fn``'s
+    result)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        result = fn()
-        torch.cuda.synchronize()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result = fn()
+            torch.cuda.synchronize()
+    finally:
+        trace.take()
+        trace.disable()
     out = summarize_profile(prof.events(), DeviceType.CUDA)
     busy = out["busy_ms"]
     print(f"  profile of {label}: window {out['window_ms']:.1f} ms, device "
@@ -1893,7 +1903,7 @@ def phase_family_serving(arch: str, label: str, checks=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     summary, _, _, contexts, wall_s, launches, prof = serve(
         runner, cfg, n_active, profile_label=label,
-        profile_shares=("kivi", "moe_dispatch") if m else ("kivi",))
+        profile_shares=("kivi", "moe_route") if m else ("kivi",))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print("  summary (TTFT is simulated on the reference's A100 TimeModel, "
           "not measured on this card):")
@@ -1902,9 +1912,9 @@ def phase_family_serving(arch: str, label: str, checks=None) -> dict:
     print(f"  kernel launches during engine.process: {launches}; peak "
           f"memory {peak_gb:.2f} GB")
     if m:
-        print(f"    moe_dispatch host time {prof['moe_dispatch_host_ms']:.3f} "
-              f"ms in {prof['moe_dispatch_calls']} calls, "
-              f"{100 * prof['moe_dispatch_host_ms'] / prof['window_ms']:.2f} "
+        print(f"    moe.route host time {prof['moe_route_host_ms']:.3f} "
+              f"ms in {prof['moe_route_calls']} calls, "
+              f"{100 * prof['moe_route_host_ms'] / prof['window_ms']:.2f} "
               "% of the window")
 
     # a real prefill entry through the kernel == the plain version's bytes
@@ -2181,8 +2191,8 @@ def family_line(out: dict, card: str) -> dict:
             "profile_busy_ms": prof["busy_ms"],
             "profile_window_ms": prof["window_ms"]}
     if "routing_gap_min" in out:
-        line["profile_moe_dispatch_ms"] = prof["moe_dispatch_ms"]
-        line["profile_moe_dispatch_host_ms"] = prof["moe_dispatch_host_ms"]
+        line["profile_moe_route_ms"] = prof["moe_route_ms"]
+        line["profile_moe_route_host_ms"] = prof["moe_route_host_ms"]
     for tag, checked in out["checks"].items():
         line[f"patch_decode_rel_err_{tag}"] = checked["patch_decode_rel_err"]
         line[f"quantized_rel_err_{tag}"] = checked["quantized_rel_err"]

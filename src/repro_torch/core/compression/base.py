@@ -17,6 +17,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.runtime import trace
+
 KVData = Dict[str, np.ndarray]
 
 
@@ -68,8 +70,15 @@ class CompressionMethod(abc.ABC):
     def compress(self, kv: KVData, rate: float) -> CompressedEntry:
         ...
 
-    @abc.abstractmethod
     def decompress(self, entry: CompressedEntry) -> KVData:
+        """The entry's KVData, inside a ``codec.decompress`` span."""
+        with trace.span("codec.decompress") as sp:
+            if sp:
+                sp.attrs.update(method=self.name, bytes=entry.nbytes)
+            return self._decompress(entry)
+
+    @abc.abstractmethod
+    def _decompress(self, entry: CompressedEntry) -> KVData:
         ...
 
     @abc.abstractmethod
@@ -94,7 +103,7 @@ class NoCompression(CompressionMethod):
     def compress(self, kv: KVData, rate: float) -> CompressedEntry:
         return CompressedEntry("none", 1.0, dict(kv), {})
 
-    def decompress(self, entry: CompressedEntry) -> KVData:
+    def _decompress(self, entry: CompressedEntry) -> KVData:
         return dict(entry.arrays)
 
     def estimate_nbytes(self, kv: KVData, rate: float) -> int:

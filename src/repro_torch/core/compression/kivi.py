@@ -19,6 +19,7 @@ from repro_torch.core.compression.base import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kivi import ops as kivi_ops
 from repro_torch.kernels.kivi.ref import Quantized
+from repro_torch.runtime import trace
 
 BITS_LADDER = (8, 4, 2)
 
@@ -92,9 +93,9 @@ class KIVICompression(CompressionMethod):
                 mat = np.pad(mat, widths)
             qt = kivi_ops.quantize(_on_device(mat, self.device), bits, g,
                                    axis)
-            arrays[f"{name}.packed"] = qt.packed.cpu().numpy()
-            arrays[f"{name}.scale"] = qt.scale.cpu().numpy()
-            arrays[f"{name}.zero"] = qt.zero.cpu().numpy()
+            arrays[f"{name}.packed"] = _on_host(qt.packed)
+            arrays[f"{name}.scale"] = _on_host(qt.scale)
+            arrays[f"{name}.zero"] = _on_host(qt.zero)
             meta["group"][name] = g
             meta["shape"][name] = a.shape
             meta["axis"][name] = axis
@@ -102,7 +103,7 @@ class KIVICompression(CompressionMethod):
         true_rate = sum(v.nbytes for v in arrays.values()) / max(kv_nbytes(kv), 1)
         return CompressedEntry(self.name, true_rate, arrays, meta)
 
-    def decompress(self, entry: CompressedEntry) -> KVData:
+    def _decompress(self, entry: CompressedEntry) -> KVData:
         out: KVData = {}
         for name, shape in entry.meta["shape"].items():
             axis = entry.meta["axis"][name]
@@ -120,7 +121,7 @@ class KIVICompression(CompressionMethod):
             else:
                 padded_dim = -(-f // g) * g
             qt = Quantized(packed, scale, zero, bits, g, axis, padded_dim)
-            mat = kivi_ops.dequantize(qt).cpu().numpy()
+            mat = _on_host(kivi_ops.dequantize(qt))
             mat = mat[:rows, :f]                     # strip padding
             out[name] = mat.reshape(shape).astype(entry.meta["dtype"][name])
         if "positions" in entry.arrays:
@@ -134,7 +135,16 @@ def _on_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()
+    if trace.ON:
+        trace.count("h2d_bytes", a.nbytes)
     return torch.from_numpy(a).to(device)
+
+
+def _on_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as a host array."""
+    if trace.ON:
+        trace.count("d2h_bytes", t.nbytes)
+    return t.cpu().numpy()
 
 
 def _axis_for(name: str) -> int:

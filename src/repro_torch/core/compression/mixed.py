@@ -52,9 +52,9 @@ class DropQuantCompression(CompressionMethod):
                                {"kivi": inner.meta, "stream": dropped.meta,
                                 "keep": keep, "bits": bits})
 
-    def decompress(self, entry: CompressedEntry) -> KVData:
+    def _decompress(self, entry: CompressedEntry) -> KVData:
         inner = CompressedEntry("kivi", 0.0, entry.arrays, entry.meta["kivi"])
-        return self.kivi.decompress(inner)
+        return self.kivi._decompress(inner)
 
     def estimate_nbytes(self, kv: KVData, rate: float) -> int:
         keep, bits = self._pick(kv, rate)

@@ -69,7 +69,7 @@ class StreamingLLMCompression(CompressionMethod):
         return CompressedEntry(self.name, true_rate, arrays,
                                {"orig_tokens": t, "keep_frac": keep})
 
-    def decompress(self, entry: CompressedEntry) -> KVData:
+    def _decompress(self, entry: CompressedEntry) -> KVData:
         return dict(entry.arrays)
 
     def estimate_nbytes(self, kv: KVData, rate: float) -> int:

@@ -60,6 +60,7 @@ from repro_torch.core.estimator import (
 from repro_torch.core.executor import Executor
 from repro_torch.core.policy import AdaptivePolicy, BasePolicy, Move, Placement
 from repro_torch.core.selector import make_selector
+from repro_torch.runtime import trace
 from repro_torch.storage.tier import Tier
 from repro_torch.storage.topology import StorageTopology
 
@@ -236,7 +237,10 @@ class AdaptCacheController:
                              redundancy=redundancy_feature(kv),
                              created_at=now, home_replica=replica,
                              tenant=tenant)
-        placement = self.policy.admit(meta, kv)
+        with trace.span("policy.admit") as sp:
+            if sp:
+                sp.attrs["key"] = key
+            placement = self.policy.admit(meta, kv)
         self.executor.store(meta, kv, placement)
         self.meta[key] = meta
         if not self.freq.seen(key):      # keep the EWMA of returning keys
@@ -254,6 +258,13 @@ class AdaptCacheController:
 
     def fetch(self, key: str, now: Optional[float] = None,
               replica: Optional[int] = None) -> Optional[FetchResult]:
+        with trace.span("serve.fetch") as sp:
+            if sp:
+                sp.attrs["key"] = key
+            return self._fetch(key, now, replica)
+
+    def _fetch(self, key: str, now: Optional[float],
+               replica: Optional[int]) -> Optional[FetchResult]:
         now = self.clock() if now is None else now
         meta = self.meta.get(key)
         if meta is None or meta.tier is None:

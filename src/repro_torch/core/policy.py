@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.compression.base import CompressionMethod, KVData
 from repro_torch.core.entry import EntryMeta
 from repro_torch.core.estimator import DelayProfile, FrequencyEstimator, QualityEstimator
+from repro_torch.runtime import trace
 from repro_torch.storage.tier import Tier
 from repro_torch.storage.topology import StorageTopology
 
@@ -255,6 +256,7 @@ class AdaptivePolicy(BasePolicy):
                 continue
             for rate in m.rates(kv_like):
                 nb = m.estimate_nbytes(kv_like, rate)
+                trace.count("policy.estimates")
                 if nb < meta.nbytes:
                     out.append((mname, rate, nb))
         return out
@@ -274,6 +276,7 @@ class AdaptivePolicy(BasePolicy):
                     continue
                 for rate in m.rates(kv):
                     nb = m.estimate_nbytes(kv, rate)
+                    trace.count("policy.estimates")
                     u = self.utility(meta, tier_name, mname, rate, nb, now)
                     if u > best[0]:
                         best = (u, Placement(tier_name, mname, rate))

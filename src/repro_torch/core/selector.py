@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.entry import EntryMeta
 from repro_torch.core.policy import Move
+from repro_torch.runtime import trace
 
 
 class SelectorMismatch(AssertionError):
@@ -227,8 +228,11 @@ class IndexedSelector:
     # -- scoring --------------------------------------------------------------
     def _push(self, meta: EntryMeta, now: float) -> None:
         pol = self.c.policy
-        move = pol.entry_best_move(meta.tier, meta, now,
-                                   kv_lookup=self.c.executor.proxies.get)
+        with trace.span("policy.rescore") as sp:
+            if sp:
+                sp.attrs["key"] = meta.key
+            move = pol.entry_best_move(meta.tier, meta, now,
+                                       kv_lookup=self.c.executor.proxies.get)
         self.stats["entries_scored"] += 1
         if move is None:
             return                  # entry offers no move: nothing to rank

@@ -32,10 +32,26 @@ DRAM holds the longest cached page run (needs ``--split-dram``);
 page runs staged SSD->DRAM, suffix prefill pipelined with the page
 loads); ``--remainder-cache`` stores the sub-page tail per context so
 exact repeats recompute nothing. Both need ``--paged``.
+
+``--trace PATH`` serves with the port's tracer on
+(``repro_torch.runtime.trace``) and writes its spans to PATH as
+chrome-trace JSON on the wall clock (``ts`` in µs since the epoch; lay
+them beside a ``torch.profiler`` trace by subtracting its
+``baseTimeNanoseconds`` / 1000). Beside the simulated summary it prints
+``wall_first_token_p50_s``, the median host seconds from a request's
+dispatch to its first answer token, and the counters' totals:
+``h2d_bytes`` (bytes copied host to device: lane copies and KIVI's
+uploads), ``d2h_bytes`` (device to host: KIVI's results, prefilled
+entries, each tick's tokens, the MoE's per-expert counts),
+``host_reads`` (blocking device-to-host reads: one a MoE layer and one
+a decode tick) and ``policy.estimates`` (the policy's size estimates).
+The simulated summary is the same with and without it.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import statistics
 import sys
 
 import numpy as np
@@ -44,6 +60,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.runtime import trace
 from repro_torch.serving.baselines import build_engine, fit_quality_estimator
 from repro_torch.serving.engine import summarize
 from repro_torch.serving.runner import ModelRunner
@@ -201,6 +218,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device the model and the KIVI kernel run "
                          "on (cuda unless 'cpu' is asked for)")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="serve with the port's tracer on and write its "
+                         "spans to PATH as chrome-trace JSON; prints the "
+                         "wall-clock first-token p50 and the counters")
     args = ap.parse_args(argv)
     if (args.readahead_pages or args.remainder_cache) and not args.paged:
         ap.error("--readahead-pages and --remainder-cache are page-native "
@@ -284,8 +305,14 @@ def main(argv=None) -> int:
     if args.serialized and (args.paged or args.chunk_tokens):
         print("note: --serialized ignores --paged/--chunk-tokens "
               "(whole-context blocking loop)")
-    results = (rig.engine.process_serialized(requests) if args.serialized
-               else rig.engine.process(requests))
+    if args.trace:
+        trace.enable()
+    try:
+        results = (rig.engine.process_serialized(requests)
+                   if args.serialized else rig.engine.process(requests))
+    finally:
+        records = trace.take()
+        trace.disable()
     s = summarize(results,
                   chunk_stats=(rig.engine.chunk_stats
                                if args.chunk_tokens and not args.serialized
@@ -306,6 +333,17 @@ def main(argv=None) -> int:
     for k, v in rig.controller.stats().items():
         if isinstance(v, (int, float)):
             print(f"  ctrl.{k:14s} {v}")
+    if args.trace:
+        with open(args.trace, "w") as f:
+            json.dump(records.chrome_trace(), f)
+        walls = [r.wall_first_token_s for r in results
+                 if r.wall_first_token_s is not None]
+        print(f"\n=== traced (wall clock; {len(records.spans)} spans in "
+              f"{args.trace}) ===")
+        if walls:
+            print(f"  wall_first_token_p50_s {statistics.median(walls):.6f}")
+        for k, v in sorted(records.counters.items()):
+            print(f"  {k:22s} {v}")
     return 0
 
 

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import Params
+from repro_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +42,10 @@ class Model:
         return transformer.loss_fn(params, self.cfg, batch, remat=remat)
 
     def prefill(self, params, batch, capacity: int):
-        return transformer.prefill(params, self.cfg, batch, capacity)
+        with trace.span("model.prefill") as sp:
+            if sp:
+                sp.attrs["tokens"] = int(batch["tokens"].shape[-1])
+            return transformer.prefill(params, self.cfg, batch, capacity)
 
     def decode_step(self, params, cache, cur_index, tokens, position=None):
         return transformer.decode_step(params, self.cfg, cache, cur_index,

@@ -40,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import sharding as shlib
 from repro_torch.launch.sharding import constrain
 from repro_torch.models.layers import Params, mlp_fwd
+from repro_torch.runtime import trace
 
 CAPACITY_FACTOR = 1.25
 
@@ -270,7 +271,7 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     t, k, e = b * s, m.top_k, m.n_routed_experts
     xf = x.reshape(t, d)
 
-    with torch.profiler.record_function("moe_dispatch"):
+    with trace.span("moe.route"):
         logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
         w, idx = router_topk(logits, k)
         aux = _balance_loss(logits, idx, e, k)
@@ -279,7 +280,11 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
                                              dropless))
         kept = order[keep]                  # flat slot ids, grouped by expert
         per_expert = torch.bincount(idx.reshape(-1)[kept], minlength=e)
-        runs = per_expert.tolist()
+        with trace.span("moe.host_read") as sp:
+            runs = per_expert.tolist()
+            if sp:
+                trace.count("host_reads")
+                trace.count("d2h_bytes", per_expert.nbytes)
 
     ex = p["experts"]
     ys = []

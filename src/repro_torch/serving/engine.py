@@ -131,6 +131,7 @@ import numpy as np
 
 from repro_torch.configs.base import LayerKind
 from repro_torch.core.controller import AdaptCacheController, SimClock, Transfer
+from repro_torch.runtime import trace
 from repro_torch.serving.chunking import (
     PagedPrefixCache, join_kv, page_keys, tail_kv,
 )
@@ -199,6 +200,11 @@ class RequestResult:
     #                                  misses (recompute is exact)
     tenant: Optional[str] = None     # owning tenant (multi-tenant runs);
     #                                  None = untenanted
+    # host seconds from the request's dispatch to its first answer token
+    # (``repro_torch.runtime.trace`` on; None off): wall clock, never
+    # simulated time, and left out of comparisons and ``summarize``
+    wall_first_token_s: Optional[float] = dataclasses.field(
+        default=None, compare=False)
 
     @property
     def itl_s(self) -> float:
@@ -457,7 +463,7 @@ class ServingEngine:
         RequestResult per request with the queue/load/prefill/decode
         breakdown. Loads and prefills overlap decode (see module doc)."""
         loop = EventLoop()
-        trace = self.last_trace = []
+        events = self.last_trace = []
         topo = self.topology
         self.prefetch_stats = {"issued": 0, "hits": 0, "wasted": 0,
                                "suppressed": 0}
@@ -538,7 +544,7 @@ class ServingEngine:
         results: List[RequestResult] = []
 
         def note(now: float, kind: str, **info) -> None:
-            trace.append((now, kind, info))
+            events.append((now, kind, info))
 
         def tick_time(now: float) -> None:
             if self.sim_clock is not None:
@@ -1047,6 +1053,7 @@ class ServingEngine:
 
         def dispatch(rep: _Replica, lane: int, req: Request,
                      now: float) -> None:
+            trace.begin_request(req.req_id)
             if self.paged is not None:
                 return dispatch_paged(rep, lane, req, now)
             ctx = self.contexts[req.context_key]
@@ -1254,7 +1261,8 @@ class ServingEngine:
                         remainder_hit=rec.get("remainder_hit", False),
                         composed_quality=rec.get("composed_quality",
                                                  1.0),
-                        tenant=ctx.tenant))
+                        tenant=ctx.tenant,
+                        wall_first_token_s=sched.wall_first_token_s))
                 issue(rep, now)
                 maybe_prefetch(now, rep)
 

@@ -24,6 +24,7 @@ from repro_torch.configs.base import AttnKind, LayerKind, ModelConfig
 from repro_torch.core.compression.base import KVData
 from repro_torch.models import Model
 from repro_torch.models.transformer import _prefix_count
+from repro_torch.runtime import trace
 
 
 def _layer_cache_refs(cache, cfg: ModelConfig):
@@ -55,7 +56,10 @@ def _attn_names(cfg: ModelConfig) -> Tuple[str, str]:
 def _host(xs: List[torch.Tensor]) -> np.ndarray:
     """Per-layer device arrays as one f32 numpy stack: one device-to-host
     copy per array, not one per layer."""
-    return torch.stack(xs).to(torch.float32).cpu().numpy()
+    x = torch.stack(xs).to(torch.float32)
+    if trace.ON:
+        trace.count("d2h_bytes", x.nbytes)
+    return x.cpu().numpy()
 
 
 def cache_to_kvdata(cache, cfg: ModelConfig, n_tokens: int) -> KVData:
@@ -87,6 +91,18 @@ def write_kvdata(cache, kv: KVData, cfg: ModelConfig, lane: int,
     place: an attention layer's rows into slots [0, n_kept), a mamba
     layer's state and conv window whole (the reference's ``put_full``).
     Returns n_kept."""
+    with trace.span("lane.write") as sp:
+        n_kept = _write_kvdata(cache, kv, cfg, lane, device)
+        if sp:
+            nbytes = sum(kv[n].nbytes for n in _attn_names(cfg)
+                         + ("ssm", "conv") if n in kv)
+            sp.attrs.update(lane=lane, bytes=nbytes)
+            trace.count("h2d_bytes", nbytes)
+        return n_kept
+
+
+def _write_kvdata(cache, kv: KVData, cfg: ModelConfig, lane: int,
+                  device) -> int:
     names = _attn_names(cfg)
     n_kept = int(kv["positions"].shape[0]) if "positions" in kv else (
         kv[names[0]].shape[1] if names[0] in kv else 0)

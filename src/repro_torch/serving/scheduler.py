@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.compression.base import KVData
 from repro_torch.models import Model
+from repro_torch.runtime import trace
 from repro_torch.serving.runner import write_kvdata
 from repro_torch.serving.timemodel import TimeModel
 from repro_torch.serving.workload import Request
@@ -53,6 +54,8 @@ class SlotState:
     position: int = 0                # next RoPE position
     pending: List[int] = dataclasses.field(default_factory=list)
     generated: List[int] = dataclasses.field(default_factory=list)
+    # host seconds from dispatch to the first answer token (tracing on)
+    wall_first_token_s: Optional[float] = None
     # fraction of dense KV bytes this lane's context costs per decode
     # read: < 1.0 when the matched prefix stays packed in HBM and the
     # fused kernel dequantizes it in VREGs (1.0 = dense pricing)
@@ -74,6 +77,7 @@ class ScheduledResult:
     # happened mid-question the TTFT is fabricated — aggregates must
     # exclude truncated results (see ``summarize``)
     truncated: bool = False
+    wall_first_token_s: Optional[float] = None
 
 
 class ContinuousBatcher:
@@ -156,10 +160,21 @@ class ContinuousBatcher:
             write[i] = min(s.write_slot, self.capacity - 1)
             pos[i] = s.position
         dev = self.device
-        logits, self.cache = self._decode(
-            self.params, self.cache, torch.from_numpy(write).to(dev),
-            torch.from_numpy(tokens).to(dev, torch.long),
-            torch.from_numpy(pos).to(dev))
+        if trace.ON:
+            trace.set_request([self.slots[i].req.req_id for i in active])
+        with trace.span("model.step") as sp:
+            if sp:
+                sp.attrs.update(lanes=active,
+                                ctx=[int(pos[i]) + 1 for i in active])
+            logits, self.cache = self._decode(
+                self.params, self.cache, torch.from_numpy(write).to(dev),
+                torch.from_numpy(tokens).to(dev, torch.long),
+                torch.from_numpy(pos).to(dev))
+            nxt = torch.argmax(logits[:, 0], dim=-1)
+            if sp:
+                trace.count("host_reads")
+                trace.count("d2h_bytes", nxt.nbytes)
+            nxt = nxt.cpu().numpy()
 
         max_ctx = max(self.slots[i].position for i in active)
         dt = self.tm.decode_step_s(len(active), max_ctx,
@@ -167,7 +182,6 @@ class ContinuousBatcher:
                                        active))
 
         done: List[ScheduledResult] = []
-        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         for i in active:
             s = self.slots[i]
             s.write_slot += 1
@@ -182,6 +196,8 @@ class ContinuousBatcher:
                         s.ttft_s = now + dt - s.req.arrival_s
             else:
                 s.generated.append(int(nxt[i]))
+            if s.generated and s.wall_first_token_s is None:
+                s.wall_first_token_s = trace.end_request(s.req.req_id)
             answered = (not s.pending
                         and len(s.generated) >= s.req.max_new_tokens)
             out_of_capacity = s.write_slot >= self.capacity
@@ -191,7 +207,10 @@ class ContinuousBatcher:
                     s.ttft_s if s.ttft_s is not None else now + dt -
                     s.req.arrival_s,
                     now + dt, list(s.generated),
-                    truncated=out_of_capacity and not answered))
+                    truncated=out_of_capacity and not answered,
+                    wall_first_token_s=s.wall_first_token_s))
+                # a request cut before its first token closes its span here
+                trace.end_request(s.req.req_id)
                 self.slots[i] = SlotState()
         return done, dt
 
@@ -351,6 +370,7 @@ class LaneSet:
 
     def admit(self, lane: int, req: Request, kv: KVData, orig_len: int,
               now: float, kv_frac: float = 1.0) -> None:
+        trace.set_request(req.req_id)
         self.reserved.discard(lane)
         self.batcher.admit(lane, req, kv, orig_len, now, kv_frac=kv_frac)
 

@@ -8,8 +8,10 @@ device spec abstraction so the same policy runs with TPU-host constants
   * SSDTier serializes entries to real files (codec-framed, CRC-checked)
     under a spool directory — bytes genuinely leave memory;
   * delay accounting is a calibrated model (default: the paper's 1 GB/s
-    disk; DRAM->device 16 GB/s PCIe-class) so benchmark numbers are
-    host-independent, while ``measure=True`` uses actual wall-clock I/O.
+    disk; DRAM->device 16 GB/s PCIe-class), so the simulated numbers are
+    host-independent. The host time of a real read is the ``tier.get``
+    span of ``repro_torch.runtime.trace`` when tracing is on; it never
+    enters the delay model.
 
 ``zstandard`` is an optional dependency: when absent, SSD frames fall
 back to ``zlib``. The codec is recorded in each entry's header so frames
@@ -21,7 +23,6 @@ import dataclasses
 import os
 import struct
 import tempfile
-import time
 import zlib
 from typing import Any, Dict, Iterable, Optional, Tuple
 
@@ -33,6 +34,7 @@ except ImportError:                     # pragma: no cover - env dependent
     zstandard = None
 
 from repro_torch.core.compression.base import CompressedEntry
+from repro_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +132,11 @@ class DRAMTier(Tier):
         return nb
 
     def get(self, key: str) -> CompressedEntry:
-        return self._store[key]
+        with trace.span("tier.get") as sp:
+            entry = self._store[key]
+            if sp:
+                sp.attrs.update(tier=self.name, bytes=entry.nbytes)
+            return entry
 
     def evict(self, key: str) -> None:
         self.used_bytes -= self._meta.pop(key)["nbytes"]
@@ -155,11 +161,10 @@ class SSDTier(Tier):
     """
 
     def __init__(self, spec: DeviceSpec = PAPER_SSD,
-                 root: Optional[str] = None, measure: bool = False,
+                 root: Optional[str] = None,
                  codec: Optional[int] = None, name: Optional[str] = None):
         super().__init__(spec, name=name)
         self.root = root or tempfile.mkdtemp(prefix="adaptcache_ssd_")
-        self.measure = measure
         self.codec = _default_codec() if codec is None else codec
         if self.codec == CODEC_ZSTD and zstandard is None:
             raise RuntimeError("zstd codec requested but zstandard is "
@@ -218,21 +223,18 @@ class SSDTier(Tier):
 
     def get(self, key: str) -> CompressedEntry:
         info = self._meta[key]
-        # measure=True times REAL host I/O (calibration aid), not
-        # simulated time  # simcheck: ignore[wallclock]
-        t0 = time.perf_counter()  # simcheck: ignore[wallclock]
-        with open(info["path"], "rb") as f:
-            assert f.read(4) == _MAGIC, f"corrupt frame for {key}"
-            codec, crc, orig_len = _HEADER.unpack(f.read(_HEADER.size))
-            raw = self._unframe(codec, f.read(), orig_len)
-        if zlib.crc32(raw) != crc:
-            raise IOError(f"CRC mismatch for entry {key} — corrupt SSD page")
-        entry = CompressedEntry.frombytes(raw, info["method"], info["rate"],
-                                          info["meta"])
-        if self.measure:
-            info["last_read_s"] = (time.perf_counter()  # simcheck: ignore[wallclock]
-                                   - t0)
-        return entry
+        with trace.span("tier.get") as sp:
+            if sp:
+                sp.attrs.update(tier=self.name, bytes=info["disk_bytes"])
+            with open(info["path"], "rb") as f:
+                assert f.read(4) == _MAGIC, f"corrupt frame for {key}"
+                codec, crc, orig_len = _HEADER.unpack(f.read(_HEADER.size))
+                raw = self._unframe(codec, f.read(), orig_len)
+            if zlib.crc32(raw) != crc:
+                raise IOError(f"CRC mismatch for entry {key} — corrupt "
+                              "SSD page")
+            return CompressedEntry.frombytes(raw, info["method"],
+                                             info["rate"], info["meta"])
 
     def evict(self, key: str) -> None:
         info = self._meta.pop(key)

@@ -169,12 +169,12 @@ def _flags(path: Path):
 
 
 def test_serve_driver_flags_and_run():
-    """The port's flags are the reference's plus --device, with the same
-    --train-steps default (150); a CPU run trains the smoke model, prints
-    its loss, then serves."""
+    """The port's flags are the reference's plus --device and --trace,
+    with the same --train-steps default (150); a CPU run trains the smoke
+    model, prints its loss, then serves."""
     ref = _flags(ROOT / "src/repro/launch/serve.py")
     port = _flags(ROOT / "src/repro_torch/launch/serve.py")
-    assert port == ref | {"--device"}
+    assert port == ref | {"--device", "--trace"}
     default = r"\"--train-steps\", type=int, default=(\d+)"
     assert (re.findall(default, (ROOT / "src/repro_torch/launch/serve.py")
                        .read_text())
