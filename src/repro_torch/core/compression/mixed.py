@@ -31,20 +31,28 @@ class DropQuantCompression(CompressionMethod):
     def rates(self, kv: Optional[KVData] = None) -> Sequence[float]:
         if kv is None:
             return tuple(k * (b / 32 + 8 / (64 * 4)) for k, b in self.grid)
-        return tuple(self._est(kv, k, b) / max(1, sum(a.nbytes for a in kv.values()))
-                     for k, b in self.grid)
+        return self._ladder(kv)[1]
 
-    def _est(self, kv: KVData, keep: float, bits: int) -> int:
-        dropped = self.stream.compress(kv, keep)   # cheap: slicing only
-        return self.kivi.estimate_quantized_nbytes(dropped.arrays, bits)
+    def _ladder(self, kv: KVData):
+        """Each grid point's compressed bytes and rate on ``kv``, from shapes
+        alone: the dropped entry's stand-ins (one a keep fraction) hold no
+        rows."""
+        kept = {k: self.stream.kept_proxy(kv, k)
+                for k in {k for k, _ in self.grid}}
+        sizes = [self.kivi.estimate_quantized_nbytes(kept[k], b)
+                 for k, b in self.grid]
+        orig = max(1, sum(a.nbytes for a in kv.values()))
+        return sizes, tuple(n / orig for n in sizes)
 
     def _pick(self, kv: KVData, rate: float):
-        ladder = self.rates(kv)
+        """The grid point whose rate on ``kv`` is closest to ``rate``, and
+        its estimated bytes."""
+        sizes, ladder = self._ladder(kv)
         i = int(np.argmin([abs(r - rate) for r in ladder]))
-        return self.grid[i]
+        return self.grid[i], sizes[i]
 
     def compress(self, kv: KVData, rate: float) -> CompressedEntry:
-        keep, bits = self._pick(kv, rate)
+        (keep, bits), _ = self._pick(kv, rate)
         dropped = self.stream.compress(kv, keep)
         inner = self.kivi.compress(dropped.arrays, 0.0, bits=bits)
         orig = max(1, sum(a.nbytes for a in kv.values()))
@@ -57,5 +65,4 @@ class DropQuantCompression(CompressionMethod):
         return self.kivi._decompress(inner)
 
     def estimate_nbytes(self, kv: KVData, rate: float) -> int:
-        keep, bits = self._pick(kv, rate)
-        return self._est(kv, keep, bits)
+        return self._pick(kv, rate)[1]

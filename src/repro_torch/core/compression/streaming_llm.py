@@ -39,9 +39,11 @@ class StreamingLLMCompression(CompressionMethod):
     def rates(self, kv: Optional[KVData] = None) -> Sequence[float]:
         return KEEP_LADDER
 
+    def _n_keep(self, t: int, keep_frac: float) -> int:
+        return min(max(self.n_sink + 1, int(round(t * keep_frac))), t)
+
     def _keep_indices(self, t: int, keep_frac: float) -> np.ndarray:
-        n_keep = max(self.n_sink + 1, int(round(t * keep_frac)))
-        n_keep = min(n_keep, t)
+        n_keep = self._n_keep(t, keep_frac)
         n_recent = n_keep - self.n_sink
         if n_recent <= 0:
             return np.arange(n_keep)
@@ -75,7 +77,7 @@ class StreamingLLMCompression(CompressionMethod):
     def estimate_nbytes(self, kv: KVData, rate: float) -> int:
         keep = self.closest_rate(kv, rate)
         t = self._token_dim(kv)
-        n_keep = len(self._keep_indices(t, keep))
+        n_keep = self._n_keep(t, keep)
         total = 0
         for name, a in kv.items():
             if name in self.TOKEN_ARRAYS or name == "positions":
@@ -83,3 +85,23 @@ class StreamingLLMCompression(CompressionMethod):
             else:
                 total += a.nbytes
         return int(total) + (0 if "positions" in kv else 4 * n_keep)
+
+    def kept_proxy(self, kv: KVData, rate: float) -> KVData:
+        """Zero-storage stand-ins with the shapes and dtypes of
+        ``compress(kv, rate).arrays``, for size estimates: no row is copied."""
+        keep = self.closest_rate(kv, rate)
+        n_keep = self._n_keep(self._token_dim(kv), keep)
+        arrays = {}
+        for name, a in kv.items():
+            if name == "positions":
+                shape = (n_keep, *a.shape[1:])
+            elif name in self.TOKEN_ARRAYS:
+                shape = (a.shape[0], n_keep, *a.shape[2:])
+            else:
+                arrays[name] = a                 # ssm-like: pass through
+                continue
+            arrays[name] = np.broadcast_to(np.zeros((), a.dtype), shape)
+        if "positions" not in kv:
+            arrays["positions"] = np.broadcast_to(np.zeros((), np.int32),
+                                                  (n_keep,))
+        return arrays

@@ -1,5 +1,7 @@
 """Port parity: the compression methods of ``repro_torch`` against the JAX
 package, on KVData whose grouped axes need padding."""
+import tracemalloc
+
 import numpy as np
 import pytest
 import torch
@@ -8,6 +10,7 @@ from repro.core.compression import default_registry as jregistry
 from repro.core.compression.kivi import KIVICompression as JKIVI
 from repro_torch.core.compression import default_registry as tregistry
 from repro_torch.core.compression.kivi import KIVICompression as TKIVI
+from repro_torch.core.executor import shape_proxy
 from repro_torch.device import cap_test_threads
 
 cap_test_threads()
@@ -59,18 +62,73 @@ def test_kivi_rate_ladder_matches():
         _same_entry(jm.compress(kv, rate), tm.compress(kv, rate))
 
 
-@pytest.mark.parametrize("name,rate", [("none", 1.0), ("streaming_llm", 0.5),
-                                       ("streaming_llm", 0.25),
-                                       ("drop_kivi", 0.1),
-                                       ("drop_kivi", 0.03)])
-def test_registry_methods_match(name, rate):
-    kv = _kv(11, tokens=64, feat=32)
+def _layout(layout: str):
+    """Entries the ``drop_kivi`` arm accepts: GQA k/v with and without
+    ``positions``, an MLA latent, a ``t`` under ``n_sink + 1`` and an odd
+    ``t``; ``-proxy`` is the executor's shape proxy of the same entry."""
+    name, _, proxy = layout.partition("-")
+    rng = np.random.RandomState(5)
+    if name == "gqa":
+        kv = _kv(11, tokens=64, feat=32)
+    elif name == "gqa_nopos":
+        kv = _kv(12, tokens=48, feat=24)
+        del kv["positions"]
+    elif name == "mla":
+        kv = {"ckv": rng.randn(3, 40, 32).astype(np.float32),
+              "krope": rng.randn(3, 40, 8).astype(np.float32)}
+    elif name == "short":
+        kv = _kv(13, tokens=3, feat=16)
+    else:                                                   # odd
+        kv = _kv(14, layers=3, tokens=37, feat=38)
+    return shape_proxy(kv) if proxy else kv
+
+
+_LAYOUTS = ("gqa", "gqa_nopos", "mla", "short", "odd")
+_REGISTRY_CASES = (
+    [pytest.param(n, r, "gqa", id=f"{n}-{r}")
+     for n, r in [("none", 1.0), ("streaming_llm", 0.5),
+                  ("streaming_llm", 0.25), ("drop_kivi", 0.1),
+                  ("drop_kivi", 0.03)]]
+    + [pytest.param("drop_kivi", r, f"{lay}{px}", id=f"drop_kivi-{r}-{lay}{px}")
+       for lay in _LAYOUTS for px in ("", "-proxy") for r in (0.1, 0.03)
+       if (lay, px) != ("gqa", "")])
+
+
+@pytest.mark.parametrize("name,rate,layout", _REGISTRY_CASES)
+def test_registry_methods_match(name, rate, layout):
+    kv = _layout(layout)
     jm, tm = jregistry()[name], tregistry(device="cpu")[name]
     assert tm.rates(kv) == jm.rates(kv)
     assert tm.estimate_nbytes(kv, rate) == jm.estimate_nbytes(kv, rate)
+    if name == "drop_kivi":
+        for r in jm.rates(kv):
+            assert tm.estimate_nbytes(kv, r) == jm.estimate_nbytes(kv, r)
     je, te = jm.compress(kv, rate), tm.compress(kv, rate)
     _same_entry(je, te)
     _same_kv(jm.decompress(je), tm.decompress(te))
+
+
+def test_drop_kivi_estimates_copy_no_rows():
+    """``rates`` and ``estimate_nbytes`` of ``drop_kivi`` read shapes only:
+    on a 64 MiB shape proxy they allocate well under one kept copy, and
+    give what compressing the dropped entry would."""
+    kv = shape_proxy({"k": np.zeros((16, 256, 2048), np.float32),
+                      "v": np.zeros((16, 256, 2048), np.float32),
+                      "positions": np.zeros(256, np.int32)})
+    m = tregistry(device="cpu")["drop_kivi"]
+    want = [m.kivi.estimate_quantized_nbytes(
+        m.stream.compress(kv, keep).arrays, bits) for keep, bits in m.grid]
+    orig = sum(a.nbytes for a in kv.values())
+    tracemalloc.start()
+    try:
+        ladder = m.rates(kv)
+        got = [m.estimate_nbytes(kv, r) for r in ladder]
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 1 << 20, peak
+    assert ladder == tuple(n / orig for n in want)
+    assert got == want
 
 
 def test_kivi_defaults_to_cuda():
