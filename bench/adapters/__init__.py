@@ -7,7 +7,9 @@ An adapter module defines
 
 * ``port_config(hf: dict) -> ModelConfig``
 * ``layer_weights(params, cfg, i) -> dict``: layer ``i``'s weights under
-  the reference's names (views of the benchmark's tensors, no copies).
+  the reference's names (views of the benchmark's tensors, no copies):
+  ``ln1``, ``ln2``, the FFN's (``common_weights``) and the mixer's, an
+  attention layer's or a Mamba layer's (``reference/model.py``).
 
 Adding a model family is adding ``adapters/<model_type>.py``.
 """
@@ -47,7 +49,9 @@ def _layer_tree(params, cfg, i: int) -> Dict:
 
 
 def common_weights(params, cfg, i: int) -> Dict:
-    """The reference's names for the norms and FFN of layer ``i``."""
+    """The reference's names for the norms and FFN of layer ``i``, and
+    its mixer's leaves in the port's tree under ``attn`` or, on a Mamba
+    layer, ``mamba``, for the adapter to name."""
     blk = _layer_tree(params, cfg, i)
     w = {"ln1": blk["ln1"], "ln2": blk["ln2"]}
     if "ffn_moe" in blk:
@@ -62,5 +66,6 @@ def common_weights(params, cfg, i: int) -> Dict:
     else:
         w.update(dense_gate=blk["ffn"]["wi_gate"], dense_up=blk["ffn"]["wi_up"],
                  dense_down=blk["ffn"]["wo"])
-    w["attn"] = blk["attn"]
+    mixer = "mamba" if "mamba" in blk else "attn"
+    w[mixer] = blk[mixer]
     return w

@@ -7,22 +7,26 @@ once the window has closed.
   token): ||program - reference|| / ||reference||; the median over the
   checked requests (compared) and the largest (reported). A hit is
   followed from the program's own stored state (the reference decodes
-  the stored entry itself and runs the question over it); a miss from
-  the reference's own prefill of the document. The largest is set by the
-  few requests where bfloat16 flips an expert choice; the median is the
-  error that every request carries.
+  the stored entry itself and runs the question over its rows and, in a
+  hybrid, its Mamba states); a miss from the reference's own prefill of
+  the document. The largest is set by the few requests where bfloat16
+  flips an expert choice; the median is the error that every request
+  carries.
 * ``served_gap``: by how much the served token's logit lies below the
   reference's best at the same place, widest over the checked requests,
   in logit units.
 * ``prefill_err``: the start that a hit skips. The program's uncompressed
-  prefill entry of each checked document against the reference's own
-  rows: ||program - reference|| / ||reference|| a layer and an array,
-  the largest.
+  prefill entry of each checked document against the reference's own:
+  ||program - reference|| / ||reference|| a layer and an array (the
+  attention rows, and each Mamba layer's ``ssm`` state and ``conv``
+  window), the largest.
 * ``stored_mismatch``: the stage that a hit skips. Elements of each
   checked stored entry that differ from a correct compression of what the
   program's compress was given (at the bits, groups and kept share that
-  the entry records), plus elements that differ between the entry a tier
-  was given and the one it gave back. Exact: a correct program reads 0.
+  the entry records; token dropping passes the Mamba states whole and
+  KIVI quantizes them), plus elements that differ between the entry a
+  tier was given and the one it gave back. Exact: a correct program
+  reads 0.
 
 With ``control`` the same are read for the control: the reference on
 float8 operands in the program's place (``logit_err*`` and
@@ -167,8 +171,7 @@ def run_checks(hf: Dict, layer_weights, globals_: Dict, checked: List[Dict],
             src = c["put_input"]
             if method == "drop_kivi":
                 idx, pos = kivi.kept_rows(src, meta["keep"], 4)
-                src = {k: np.asarray(v)[:, idx] for k, v in src.items()
-                       if k != "positions"}
+                src = kivi.keep_tokens(src, idx)
             low = kivi.kivi_payload(src, inner, device, arith=torch.bfloat16)
             miss["control_"] += _count_diff(
                 {k: v for k, v in arrays.items() if k in low}, low)

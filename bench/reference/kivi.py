@@ -9,6 +9,9 @@ a byte, code j at bit offset j * bits. ``scale = (max - min) * f32(1 /
 (2^bits - 1))``, ``code = clip(round_half_even((x - min) / scale), 0,
 2^bits - 1)`` (a zero scale divides by 1), ``x' = code * scale + min``
 rounded once to f32.
+
+A Mamba layer's ``ssm`` and ``conv`` arrays have no token axis: token
+dropping passes them whole, and KIVI quantizes them as it does V.
 """
 from __future__ import annotations
 
@@ -16,6 +19,22 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from bench.reference.model import STATE   # arrays with no token axis
+
+
+def _tokens(kv: Dict) -> int:
+    """The token count of an entry: axis 1 of its attention arrays."""
+    return next(np.shape(v)[1] for k, v in kv.items()
+                if k != "positions" and k not in STATE)
+
+
+def keep_tokens(kv: Dict[str, np.ndarray], idx: np.ndarray
+                ) -> Dict[str, np.ndarray]:
+    """The arrays of ``kv`` with only rows ``idx`` of each attention
+    array, the state arrays whole (``positions`` left out)."""
+    return {k: np.asarray(v) if k in STATE else np.asarray(v)[:, idx]
+            for k, v in kv.items() if k != "positions"}
 
 
 def round_group(g: int, bits: int) -> int:
@@ -90,8 +109,9 @@ def _kivi_arrays(arrays: Dict[str, np.ndarray], meta: Dict,
 
 def entry_kv(method: str, arrays: Dict[str, np.ndarray], meta: Dict,
              device) -> Tuple[Dict[str, torch.Tensor], np.ndarray]:
-    """A stored entry as f32 KV arrays (L, T_kept, F) on ``device`` and
-    the original positions of its kept rows."""
+    """A stored entry as f32 arrays on ``device`` (attention rows (L,
+    T_kept, F), Mamba states whole) and the original positions of its
+    kept rows."""
     if method in ("none", "streaming_llm"):
         kv = {k: _to_device(v, device).to(torch.float32)
               for k, v in arrays.items() if k != "positions"}
@@ -101,9 +121,8 @@ def entry_kv(method: str, arrays: Dict[str, np.ndarray], meta: Dict,
         kv = _kivi_arrays(arrays, meta["kivi"], device)
     else:
         raise ValueError(f"no plain decoding of method {method!r}")
-    t = next(iter(kv.values())).shape[1]
     pos = np.asarray(arrays["positions"]) if "positions" in arrays \
-        else np.arange(t)
+        else np.arange(_tokens(kv))
     return kv, pos
 
 
@@ -139,7 +158,7 @@ def kept_rows(kv: Dict[str, np.ndarray], keep: float, n_sink: int
               ) -> Tuple[np.ndarray, np.ndarray]:
     """StreamingLLM's rule on the input ``kv``: the row indices it keeps
     and their original positions."""
-    t = next(np.asarray(v).shape[1] for k, v in kv.items() if k != "positions")
+    t = _tokens(kv)
     idx = keep_indices(t, keep, n_sink)
     pos = np.asarray(kv["positions"]) if "positions" in kv else np.arange(t)
     return idx, pos[idx]
@@ -154,8 +173,7 @@ def expected_arrays(method: str, kv: Dict[str, np.ndarray], meta: Dict,
     if method in ("streaming_llm", "drop_kivi"):
         keep = meta["keep_frac"] if method == "streaming_llm" else meta["keep"]
         idx, pos = kept_rows(kv, keep, n_sink)
-        kept = {k: np.asarray(v)[:, idx] for k, v in kv.items()
-                if k != "positions"}
+        kept = keep_tokens(kv, idx)
         if method == "streaming_llm":
             out = {k: _to_device(v, device) for k, v in kept.items()}
         else:

@@ -9,8 +9,11 @@ completion, one at a time through ``ServingEngine.process``. TTFT is the
 wall clock from a request's due time to the return of its call, which
 ends at its first answer token (every request asks for one). The last
 line of standard output is one JSON object; with ``--trace 1`` it holds
-the per-layer metrics instead of the end-to-end ones. After the window
-the plain reference judges what the program served (``correct``).
+the per-layer metrics instead of the end-to-end ones, and the window
+runs with the program's own tracer on (``repro_torch.runtime.trace``),
+its spans and counters kept on ``Run.program`` for the readers. After
+the window the plain reference judges what the program served
+(``correct``).
 
 ``--control 1`` judges the control in the program's place by the same
 limits (the reference on float8 operands, KIVI worked out in bfloat16;
@@ -46,6 +49,7 @@ from bench.metrics import percentile  # noqa: E402
 from bench.reference.check import run_checks  # noqa: E402
 from bench.spec import Spec  # noqa: E402
 from bench.tracing import Spans, reduce_profile  # noqa: E402
+from repro_torch.runtime import trace as program_trace  # noqa: E402
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 SPAN_NAMES = ["engine.process", "controller.fetch", "controller.insert",
@@ -66,6 +70,10 @@ class Run:
     span_reqs: set = dataclasses.field(default_factory=set)
     profile: Optional[Dict] = None
     profiled_reqs: set = dataclasses.field(default_factory=set)
+    # the program's spans and counters of the window
+    # (``repro_torch.runtime.trace.Records``): with --trace 1 only, and
+    # None where the caller ran the program's tracer itself
+    program: Any = None
 
     def ttfts(self) -> List[float]:
         """Every request due in the window; a failed one never answered."""
@@ -107,37 +115,47 @@ def serve(rig: rig_lib.Rig, trace: bool, setup_s: float, cell: Dict
         install_spans(rig, spans)
         prof_lo = int(n * 0.4)
         prof_hi = min(n, prof_lo + max(8, n // 6))
-    prof = None
+    prof, program = None, None
     records: List[Dict] = []
-    t0 = time.perf_counter()
-    for i, req in enumerate(reqs):
-        if i == prof_lo and trace:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            prof.__enter__()
-        wait = t0 + due[i] - time.perf_counter()
-        if wait > 0:
-            time.sleep(wait)
-        cap.req, cap.req_key, spans.req = i, req.context_key, i
-        start = time.perf_counter()
-        rec = {"due_s": float(due[i]), "start_s": start - t0, "ok": False,
-               "answer": [], "hit_tier": None, "method": None, "error": None}
-        try:
-            out = rig.engine.process([req], skip_quality=True)
-            res = out[0] if out else None
-            if res is not None and res.answer:
-                rec.update(ok=True, answer=list(res.answer),
-                           hit_tier=res.hit_tier, method=res.method,
-                           rate=res.rate)
-        except Exception as e:  # a failed request misses every limit
-            rec["error"] = f"{type(e).__name__}: {e}"
-        ret = time.perf_counter()
-        rec["ret_s"] = ret - t0
-        rec["ttft_s"] = ret - (t0 + due[i])
-        records.append(rec)
-        if prof is not None and i == prof_hi - 1:
-            prof.__exit__(None, None, None)
+    # the program's tracer over the window, unless a caller runs it
+    own_trace = trace and not program_trace.ON
+    if own_trace:
+        program_trace.enable()
+    try:
+        t0 = time.perf_counter()
+        for i, req in enumerate(reqs):
+            if i == prof_lo and trace:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            wait = t0 + due[i] - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            cap.req, cap.req_key, spans.req = i, req.context_key, i
+            start = time.perf_counter()
+            rec = {"due_s": float(due[i]), "start_s": start - t0,
+                   "ok": False, "answer": [], "hit_tier": None,
+                   "method": None, "error": None}
+            try:
+                out = rig.engine.process([req], skip_quality=True)
+                res = out[0] if out else None
+                if res is not None and res.answer:
+                    rec.update(ok=True, answer=list(res.answer),
+                               hit_tier=res.hit_tier, method=res.method,
+                               rate=res.rate)
+            except Exception as e:  # a failed request misses every limit
+                rec["error"] = f"{type(e).__name__}: {e}"
+            ret = time.perf_counter()
+            rec["ret_s"] = ret - t0
+            rec["ttft_s"] = ret - (t0 + due[i])
+            records.append(rec)
+            if prof is not None and i == prof_hi - 1:
+                prof.__exit__(None, None, None)
+    finally:
+        if own_trace:
+            program = program_trace.take()
+            program_trace.disable()
     cap.req = cap.req_key = spans.req = None
     window_s = records[-1]["ret_s"] if records else 0.0
     if dev.type == "cuda":
@@ -151,11 +169,12 @@ def serve(rig: rig_lib.Rig, trace: bool, setup_s: float, cell: Dict
                 if rec["ok"] else 0.0
     run = Run(cell, rig.hf, rig.traffic.mix, records, setup_s, window_s, cap,
               spans.spans,
-              set(range(n)) - set(range(prof_lo, prof_hi)))
+              set(range(n)) - set(range(prof_lo, prof_hi)), program=program)
     if prof is not None:
         path = rig.ssd_root + ".trace.json"
         prof.export_chrome_trace(path)
-        run.profile = reduce_profile(path, SPAN_NAMES)
+        run.profile = reduce_profile(path, SPAN_NAMES
+                                     + list(program_trace.SPANS))
         run.profiled_reqs = set(range(prof_lo, prof_hi))
         os.remove(path)
     return run

@@ -17,6 +17,7 @@ the tail."""
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 import time
@@ -80,6 +81,7 @@ def main(argv=None) -> int:
         finally:
             rig.close()
             del rig
+            gc.collect()            # the rig's objects hold cycles
             torch.cuda.empty_cache()
         row = dict(summarize(rate, run.records), setup_s=setup)
         rows.append(row)

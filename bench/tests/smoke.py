@@ -1,5 +1,6 @@
 """Smoke-size cells for the CPU tests: f32 OLMoE and DeepSeek-V2 shapes a
-few layers deep (``data/``), run by ``bench.run.main`` with the chip
+few layers deep, and one period of Jamba's hybrid (``data/``; its adapter
+is test-local, ``jamba.py``), run by ``bench.run.main`` with the chip
 check skipped."""
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch
 from bench.spec import BENCH_DIR, Spec
 
 DATA = Path(__file__).resolve().parent / "data"
-CELLS = ["olmoe-smoke.doc_reuse", "deepseek-smoke.doc_reuse"]
+CELLS = ["olmoe-smoke.doc_reuse", "deepseek-smoke.doc_reuse",
+         "jamba-smoke.doc_reuse"]
 
 
 def spec(data: Path = DATA, metrics_dir: Path = BENCH_DIR / "metrics") -> Spec:

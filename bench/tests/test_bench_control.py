@@ -10,14 +10,15 @@ import torch
 from repro_torch.device import cap_test_threads
 
 from bench import run as run_lib
-from bench.tests.smoke import run_cell, spec
+from bench.tests import jamba
+from bench.tests.smoke import CELLS, run_cell, spec
 
 cap_test_threads()
 
 
-@pytest.mark.parametrize("cell", ["olmoe-smoke.doc_reuse",
-                                  "deepseek-smoke.doc_reuse"])
-def test_control_comes_out_not_correct(cell):
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_comes_out_not_correct(cell, monkeypatch):
+    jamba.install(monkeypatch)
     sp = spec()
     c = sp.cell(cell)
     rig, params = run_lib.prepare(sp, c, 5, 1.0, torch.device("cpu"))
@@ -33,12 +34,12 @@ def test_control_comes_out_not_correct(cell):
     assert nums["control_logit_err_med"] > limits["logit_err_med"]
 
 
-@pytest.mark.parametrize("cell", ["olmoe-smoke.doc_reuse",
-                                  "deepseek-smoke.doc_reuse"])
-def test_control_run_reports_not_correct(cell):
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_run_reports_not_correct(cell, monkeypatch):
     """``run.py --control 1`` judges the control by the run's own
     comparison and limits: its line says not correct, and every number
     compared is the control's."""
+    jamba.install(monkeypatch)
     rc, last, out, err = run_cell(cell, seed=6, extra=("--control", "1"))
     assert rc == 0 and last is not None
     assert last["correct"] is False, err

@@ -12,6 +12,7 @@ from repro_torch.models import Model
 
 from bench import counts
 from bench.rig import port_config
+from bench.tests import jamba
 from bench.tests.smoke import DATA
 from bench.weights import make_params
 
@@ -26,8 +27,13 @@ def test_kivi_bytes_at_the_kernel_table_shape(bits):
     assert counts.kivi_bytes(n_el, bits, gs) == table
 
 
-@pytest.mark.parametrize("name", ["olmoe-smoke", "deepseek-smoke"])
-def test_decode_flops_match_the_step_counter(name):
+@pytest.mark.parametrize("name", ["olmoe-smoke", "deepseek-smoke",
+                                  "jamba-smoke"])
+def test_decode_flops_match_the_step_counter(name, monkeypatch):
+    """A hybrid's Mamba layers count their projections, and in a decode
+    step the conv window and the state's contraction with C, which the
+    port runs as products there."""
+    jamba.install(monkeypatch)
     hf = json.loads((DATA / "configs" / f"{name}.json").read_text())
     _, cfg = port_config(hf, name)
     p = make_params(cfg, 3, torch.device("cpu"), dtype=torch.float32)

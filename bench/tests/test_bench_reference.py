@@ -1,6 +1,6 @@
 """The plain reference against ``repro_torch`` at smoke size, in f32: the
-rows a prefill stores and the logits after a cache written from an
-entry; the plain KIVI against the port's compression methods."""
+rows and states a prefill stores and the logits after a cache written
+from an entry; the plain KIVI against the port's compression methods."""
 import json
 
 import numpy as np
@@ -16,6 +16,7 @@ from bench.reference import kivi
 from bench.reference.check import _count_diff
 from bench.reference.model import PlainLM
 from bench.rig import port_config
+from bench.tests import jamba
 from bench.tests.smoke import DATA
 from bench.weights import make_params
 
@@ -31,13 +32,23 @@ def _setup(name, seed=7):
     return hf, cfg, p, lm
 
 
-@pytest.mark.parametrize("name", ["olmoe-smoke", "deepseek-smoke"])
-def test_reference_matches_port_in_f32(name):
+@pytest.mark.parametrize("name", ["olmoe-smoke", "deepseek-smoke",
+                                  "jamba-smoke"])
+def test_reference_matches_port_in_f32(name, monkeypatch):
+    """Prefill rows (and a hybrid's Mamba states), then a two-token
+    question decoded through the cache. Both sides run f32 and differ
+    only in the order of sums (the port's fused or batched products, its
+    scan through the kernel's plain form; the reference's plain products
+    and token loop): a few ulp of values of order 1 to 4, so 1e-5
+    absolute and relative. Continuing from the stored rows and states is
+    running the whole sequence, to the same tolerance."""
+    jamba.install(monkeypatch)
     hf, cfg, p, lm = _setup(name)
     runner = ModelRunner(Model(cfg), p, capacity=200)
     toks = np.random.RandomState(0).randint(8, 500, 150).astype(np.int32)
     kv = runner.prefill_entry(toks)
     rows = lm.prefill(torch.as_tensor(toks, dtype=torch.long))
+    assert set(rows) == set(kv) - {"positions"}
     for k, v in rows.items():
         assert torch.allclose(torch.from_numpy(kv[k]), v, rtol=1e-5,
                               atol=1e-5), k
@@ -51,6 +62,9 @@ def test_reference_matches_port_in_f32(name):
     ref = lm.continue_from(rows, torch.as_tensor(q, dtype=torch.long),
                            len(toks))
     assert torch.allclose(lg[0, -1], ref, rtol=1e-5, atol=1e-5)
+    whole = lm.all_logits(torch.as_tensor(np.concatenate([toks, q]),
+                                          dtype=torch.long))[-1]
+    assert torch.allclose(whole, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_control_differs_from_reference():

@@ -5,13 +5,15 @@ import pytest
 
 from repro_torch.device import cap_test_threads
 
+from bench.tests import jamba
 from bench.tests.smoke import CELLS, run_cell
 
 cap_test_threads()
 
 
 @pytest.mark.parametrize("cell", CELLS)
-def test_cell_end_to_end(cell):
+def test_cell_end_to_end(cell, monkeypatch):
+    jamba.install(monkeypatch)
     rc, last, _, err = run_cell(cell, seed=2 ** 31 + 11)
     assert rc == 0 and last is not None
     assert list(last)[-1] == "checks"
@@ -65,3 +67,44 @@ def test_set_up_seeds_every_document(answers):
         assert cap.prefill_lens == [] and cap.decode_ctx == []
     finally:
         rig.close()
+
+
+def test_a_new_reader_reads_the_programs_spans(tmp_path, monkeypatch):
+    """A reader added as a file of its own reads the program's own spans
+    and counters (``Run.program``) from a traced run; a run with
+    ``--trace 0`` never turns the program's tracer on."""
+    import json
+    import shutil
+
+    from repro_torch.runtime import trace
+
+    from bench.spec import BENCH_DIR, Spec
+    from bench.tests.smoke import DATA
+
+    mdir = tmp_path / "metrics"
+    shutil.copytree(BENCH_DIR / "metrics", mdir)
+    (mdir / "model_step_ms.py").write_text(
+        "def read(run):\n"
+        "    if run.program is None:\n"
+        "        return None\n"
+        "    steps = [s.dur_s for s in run.program.spans\n"
+        "             if s.name == 'model.step']\n"
+        "    return 1e3 * sum(steps) / len(steps) if steps else None\n")
+    bench = json.loads((DATA / "bench.json").read_text())
+    bench["per_layer"].append({"name": "model_step_ms", "unit": "ms",
+                               "better": "lower", "source": "program_span",
+                               "layer": "model", "moves": "ttft_p50_s",
+                               "workloads": ["olmoe-smoke.doc_reuse"]})
+    (tmp_path / "bench.json").write_text(json.dumps(bench))
+    sp = Spec(tmp_path / "bench.json", data_dir=DATA, root=DATA,
+              metrics_dir=mdir)
+    rc, last, _, err = run_cell("olmoe-smoke.doc_reuse", trace=1, sp=sp)
+    assert rc == 0 and last["correct"] is True, err
+    assert last["metrics"]["model_step_ms"]["value"] > 0
+    assert not trace.ON
+
+    def refuse():
+        raise AssertionError("the program's tracer turned on")
+    monkeypatch.setattr(trace, "enable", refuse)
+    rc, last, _, err = run_cell("olmoe-smoke.doc_reuse", trace=0, sp=sp)
+    assert rc == 0 and last["correct"] is True, err

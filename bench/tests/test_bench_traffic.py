@@ -1,10 +1,14 @@
 """The traffic generator and the percentile arithmetic."""
+import json
+
 import numpy as np
 import pytest
 
 from repro_torch.device import cap_test_threads
 
 from bench.metrics import percentile
+from bench.spec import BENCH_DIR
+from bench.tests.smoke import DATA
 from bench.traffic import generator
 
 cap_test_threads()
@@ -68,3 +72,22 @@ def test_an_unknown_kind_is_refused():
 
 def test_max_prompt_holds_the_longest_question_and_answer():
     assert generator.max_prompt(MIX) == 64 + 2 + 1
+
+
+MIX_FILES = sorted((BENCH_DIR / "traffic").glob("*.json")) + [
+    DATA / "traffic" / "doc_reuse.json"]
+
+
+@pytest.mark.parametrize("path", MIX_FILES, ids=lambda p: p.stem)
+def test_every_question_has_two_tokens(path):
+    """Every request takes the same two teacher-forced steps: a
+    summarization question is its marker and the motif's first token,
+    which the document repeats."""
+    mix = json.loads(path.read_text())
+    for seed in (3, 2 ** 31 + 7):
+        t = generator.generate(mix, 512, 3.0, 20.0, seed)
+        assert all(len(r.question) == 2 for r in t.requests)
+        for c in t.contexts:
+            assert all(len(q) == 2 for q in c.probes)
+            if c.task_type == "summarization":
+                assert all(q[0] == 7 and q[1] in c.tokens for q in c.probes)

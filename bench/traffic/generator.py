@@ -4,7 +4,9 @@ arrival schedule from a mix file (``traffic/<mix>.json``) and a seed.
 The per-task document generators are frozen copies of the port's
 ``serving/workload.py`` (``_qa_context``, ``_summary_context``,
 ``_coding_context``), kept here so that a change to the program cannot
-move the traffic.
+move the traffic. One departure: a summarization question is two tokens
+(the port's is one), so that every request takes the same two decode
+steps and a cell's TTFT is one group, not two.
 
 Every seed gets the same work in another order: the document lengths are
 the mix's list, the request count is ``round(rate * seconds)``, the gaps
@@ -56,7 +58,11 @@ def _summary_context(rng, vocab: int, length: int, n_probes: int):
     toks = np.tile(motif, reps)[:length]
     mask = rng.rand(length) < 0.15
     toks = np.where(mask, noise, toks)
-    probes = [np.array([7], dtype=np.int32) for _ in range(n_probes)]
+    # two tokens, as every other task's question has: the task's marker
+    # and the motif's first token, drawn already (no new draw, so the
+    # documents are those of a one-token question)
+    probes = [np.array([7, motif[0]], dtype=np.int32)
+              for _ in range(n_probes)]
     return toks.astype(np.int32), probes
 
 
