@@ -102,10 +102,10 @@ stops the run with a non-zero exit when it fails:
              zeroed just before ``engine.process`` and read just after: the
              scan must have launched a positive multiple of 64 times (one a
              layer a prefill) and KIVI quantize at least once; one request
-             is then profiled as in phase 3. No request hits: the reference
-             sizes its tiers from ``kv_bytes_per_token``,
-             which counts attention layers only, so on this model they hold
-             1.5 and 6 bytes. So a real prefill's ``ssm``/``conv`` state is
+             is then profiled as in phase 3. The tiers count each entry's
+             fixed state (``ModelConfig.state_bytes``), so a reused
+             document may hit; hits are not required. A real prefill's
+             ``ssm``/``conv`` state is
              compressed through the kernel (at 4 bits and at the served
              rate's bits) and decompressed, bit-equal to the plain version,
              and generation from the decompressed state must answer. The
@@ -1477,10 +1477,9 @@ def phase_mamba(scan_kernel):
         fail("KIVI quantize never launched during engine.process")
     if launches["selective_scan_bwd"] != 0:
         fail("serving launched the scan's backward")
-    print(f"  hit rate {summary['hit_rate']}: the reference sizes its tiers "
-          "from kv_bytes_per_token(), which counts attention layers only, "
-          "so on this model each tier holds 1.5 or 6 bytes and every state "
-          "entry is evicted; the round trip below checks decompression")
+    print(f"  hit rate {summary['hit_rate']}: the tiers are sized with "
+          "each entry's fixed state (ModelConfig.state_bytes); the round "
+          "trip below checks decompression")
 
     # a real prefill's state through the kernel == the plain version's
     ctx = contexts[0]

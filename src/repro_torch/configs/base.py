@@ -45,7 +45,20 @@ class MoEConfig:
     dense_d_ff: int = 0
     # apply MoE only every Nth layer (jamba: 2). 1 = every layer.
     moe_every: int = 1
+    # the layer within each period of ``moe_every`` that has experts
+    # (AI21-Jamba2-Mini: 1, the odd layers)
+    moe_offset: int = 0
     router_jitter: float = 0.0
+    # experts held by this chip: 0 = all ``n_routed_experts``. Fewer is one
+    # chip of an expert-parallel deployment: the router keeps every
+    # routed expert's column and only experts [0, held) add their part.
+    n_held_experts: int = 0
+    # the top-k router weights renormalised to sum to 1 (Jamba: not)
+    renormalize: bool = True
+
+    @property
+    def held(self) -> int:
+        return self.n_held_experts or self.n_routed_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +76,9 @@ class SSMConfig:
     d_conv: int = 4
     expand: int = 2        # d_inner = expand * d_model
     dt_rank: int = 0       # 0 -> ceil(d_model / 16)
+    # Jamba's RMS norms on dt, B and C after x_proj (leaves dt_norm,
+    # b_norm, c_norm)
+    inner_norms: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,7 +168,8 @@ class ModelConfig:
             return False
         if layer_idx < self.moe.first_k_dense:
             return False
-        return (layer_idx - self.moe.first_k_dense) % self.moe.moe_every == 0
+        return ((layer_idx - self.moe.first_k_dense) % self.moe.moe_every
+                == self.moe.moe_offset)
 
     def kv_bytes_per_token(self) -> int:
         """bf16 bytes of KV state per token (attention layers only)."""
@@ -163,6 +180,17 @@ class ModelConfig:
         else:
             per_layer = 2 * self.n_kv_heads * self.resolved_head_dim
         return n_attn * per_layer * 2
+
+    def state_bytes(self) -> int:
+        """f32 bytes of the fixed Mamba state an entry holds beside its
+        attention rows, as stored: each Mamba layer's ``ssm`` (d_inner,
+        d_state) and ``conv`` (d_conv - 1, d_inner). 0 without Mamba
+        layers."""
+        n_mamba = sum(1 for k in self.layer_kinds() if k == LayerKind.MAMBA)
+        if not n_mamba:
+            return 0
+        per_layer = self.d_inner * (self.ssm.d_state + self.ssm.d_conv - 1)
+        return n_mamba * per_layer * 4
 
 
 @dataclasses.dataclass(frozen=True)

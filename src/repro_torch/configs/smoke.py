@@ -39,6 +39,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
             first_k_dense=cfg.moe.first_k_dense,
             dense_d_ff=128 if cfg.moe.dense_d_ff else 0,
             moe_every=cfg.moe.moe_every,
+            moe_offset=cfg.moe.moe_offset,
+            renormalize=cfg.moe.renormalize,
         )
     mla = None
     if cfg.mla is not None:
@@ -46,7 +48,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
                         qk_rope_head_dim=8, v_head_dim=16, q_lora_rank=0)
     ssm = None
     if cfg.ssm is not None:
-        ssm = SSMConfig(d_state=8, d_conv=4, expand=2)
+        ssm = SSMConfig(d_state=8, d_conv=4, expand=2,
+                        inner_norms=cfg.ssm.inner_norms)
 
     return dataclasses.replace(
         cfg,

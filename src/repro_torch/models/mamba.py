@@ -1,4 +1,4 @@
-"""Mamba-1 selective-SSM block (falcon-mamba).
+"""Mamba-1 selective-SSM block (falcon-mamba, Jamba).
 
 Counterpart of ``repro.models.mamba``. The full-sequence path runs the
 selective scan through ``kernels/mamba_scan/ops.selective_scan`` (the
@@ -6,6 +6,10 @@ reference runs the same recurrence as a ``lax.scan`` and names its Pallas
 kernel as the fast path of that scan); ``d_skip`` and the ``silu(z)`` gate
 stay outside the kernel, as in the reference's kernel test. Decode is the
 plain recurrent step.
+
+With ``SSMConfig.inner_norms`` (Jamba) dt, B and C are RMS-normalised
+after ``x_proj`` (leaves ``dt_norm``, ``b_norm``, ``c_norm``, at the
+model's ``norm_eps``), dt before ``dt_proj``.
 
 Decode keeps a fixed-size recurrent cache per layer:
     conv: (B, d_conv - 1, d_inner)   the causal conv's tail window
@@ -24,7 +28,8 @@ from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.launch.sharding import (
     constrain, on_local_shards, reduce_partial,
 )
-from repro_torch.models.layers import Params
+from repro_torch.models.layers import Params, rmsnorm
+from repro_torch.runtime import trace
 
 # leaves kept in f32 whatever the param dtype, as the reference does
 F32_LEAVES = frozenset({"a_log", "d_skip"})
@@ -40,6 +45,8 @@ def param_shapes(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Params:
               "dt_proj": (r, d_in), "dt_bias": (d_in,),
               "a_log": (d_in, s.d_state), "d_skip": (d_in,),
               "out_proj": (d_in, d)}
+    if s.inner_norms:
+        shapes.update(dt_norm=(r,), b_norm=(s.d_state,), c_norm=(s.d_state,))
     return {k: tuple(lead) + v for k, v in shapes.items()}
 
 
@@ -49,9 +56,12 @@ def init_mamba_leaf(gen: torch.Generator, cfg: ModelConfig, name: str,
     layer groups) on ``gen``'s device, with the reference's init scheme:
     the three matrices N(0, 1/d_in), ``conv_w`` N(0, 1/d_conv), ``conv_b``
     zeros, ``dt_bias`` the inverse softplus of U(0.001, 0.1), ``a_log =
-    log(1..N)`` and ``d_skip`` ones in f32. Random matrices are drawn one
-    layer at a time, so no f32 copy of a whole stack exists."""
+    log(1..N)`` and ``d_skip`` ones in f32, the inner norms ones. Random
+    matrices are drawn one layer at a time, so no f32 copy of a whole
+    stack exists."""
     dev = gen.device
+    if name.endswith("_norm"):
+        return torch.ones(shape, dtype=dtype, device=dev)
     if name in ("in_proj", "x_proj", "dt_proj", "out_proj", "conv_w"):
         scale = (cfg.ssm.d_conv if name == "conv_w" else shape[-2]) ** -0.5
         out = torch.empty(shape, dtype=dtype, device=dev)
@@ -121,11 +131,13 @@ def _ssm_params(p: Params, cfg: ModelConfig, xc: torch.Tensor):
     # (..., r + 2n); under a mesh a sum over d_inner's shards, reduced
     # here before it is split
     proj = reduce_partial(xc @ p["x_proj"])
-    dt = proj[..., :r] @ p["dt_proj"] + p["dt_bias"]
-    dt = F.softplus(dt.to(torch.float32))                    # (..., d_inner)
-    b_sel = proj[..., r:r + n].to(torch.float32)
-    c_sel = proj[..., r + n:].to(torch.float32)
-    return dt, b_sel, c_sel
+    dt, b_sel, c_sel = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
+    if cfg.ssm.inner_norms:
+        dt = rmsnorm(dt, p["dt_norm"], cfg.norm_eps)
+        b_sel = rmsnorm(b_sel, p["b_norm"], cfg.norm_eps)
+        c_sel = rmsnorm(c_sel, p["c_norm"], cfg.norm_eps)
+    dt = F.softplus((dt @ p["dt_proj"] + p["dt_bias"]).to(torch.float32))
+    return dt, b_sel.to(torch.float32), c_sel.to(torch.float32)
 
 
 def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -139,29 +151,15 @@ def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     computed from the old ones, and returned."""
     s = cfg.ssm
     b, seq, _ = x.shape
-    xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)              # (B, S, d_in)
-    xs = constrain(xs, ("data", None, "model"))
-
     if decode:
         if seq != 1 or cache is None:
             raise ValueError("decode takes one token and a cache")
-        window = torch.cat([cache["conv"], xs], dim=1)       # (B, c, d_in)
-        xc = torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
-        xc = F.silu(xc)[:, None]                             # (B, 1, d_in)
-        dt, b_sel, c_sel = _ssm_params(p, cfg, xc)
-        a = -torch.exp(p["a_log"])                           # (d_in, n)
-        da = torch.exp(dt[:, 0, :, None] * a)                # (B, d_in, n)
-        dbx = (dt[:, 0, :, None] * b_sel[:, 0, None, :]
-               * xc[:, 0, :, None].to(torch.float32))
-        h = cache["ssm"] * da + dbx
-        y = torch.einsum("bdn,bn->bd", h, c_sel[:, 0])
-        y = y + p["d_skip"] * xc[:, 0].to(torch.float32)
-        y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
-        cache["conv"].copy_(window[:, 1:])
-        cache["ssm"].copy_(h)
-        return y @ p["out_proj"], cache
+        with trace.span("mamba.step"):
+            return _decode(p, cfg, x, cache)
 
     # full sequence: causal depthwise conv, then the selective scan
+    xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)              # (B, S, d_in)
+    xs = constrain(xs, ("data", None, "model"))
     pad = (torch.zeros((b, s.d_conv - 1, cfg.d_inner), dtype=xs.dtype,
                        device=x.device)
            if cache is None else cache["conv"])
@@ -184,3 +182,26 @@ def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = y.to(x.dtype) * F.silu(z)
     new_cache = {"conv": padded[:, -(s.d_conv - 1):], "ssm": h_t}
     return y @ p["out_proj"], new_cache
+
+
+def _decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params
+            ) -> Tuple[torch.Tensor, Params]:
+    """One token's step: the projections and the recurrent update, the
+    conv window and the state updated in place."""
+    xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)              # (B, 1, d_in)
+    xs = constrain(xs, ("data", None, "model"))
+    window = torch.cat([cache["conv"], xs], dim=1)           # (B, c, d_in)
+    xc = torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
+    xc = F.silu(xc)[:, None]                                 # (B, 1, d_in)
+    dt, b_sel, c_sel = _ssm_params(p, cfg, xc)
+    a = -torch.exp(p["a_log"])                               # (d_in, n)
+    da = torch.exp(dt[:, 0, :, None] * a)                    # (B, d_in, n)
+    dbx = (dt[:, 0, :, None] * b_sel[:, 0, None, :]
+           * xc[:, 0, :, None].to(torch.float32))
+    h = cache["ssm"] * da + dbx
+    y = torch.einsum("bdn,bn->bd", h, c_sel[:, 0])
+    y = y + p["d_skip"] * xc[:, 0].to(torch.float32)
+    y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
+    cache["conv"].copy_(window[:, 1:])
+    cache["ssm"].copy_(h)
+    return y @ p["out_proj"], cache

@@ -65,8 +65,9 @@ class Model:
 
     def active_param_count(self) -> int:
         """Params touched per token, counted from shapes without allocating:
-        all of them but, in each MoE layer, the E - k routed experts a
-        token does not reach."""
+        all of them but, in each MoE layer, the held experts a token does
+        not reach: of its k picks over the E routed experts, k · H / E land
+        on the H held here on average (k of E when all are held)."""
         total = self.param_count()
         cfg = self.cfg
         if cfg.moe is None:
@@ -75,8 +76,8 @@ class Model:
         n_moe_layers = sum(1 for i in range(cfg.n_layers)
                            if cfg.uses_moe_at(i))
         per_expert = 3 * cfg.d_model * m.expert_d_ff
-        return total - n_moe_layers * (m.n_routed_experts - m.top_k) \
-            * per_expert
+        unreached = m.held - m.top_k * m.held / m.n_routed_experts
+        return int(round(total - n_moe_layers * unreached * per_expert))
 
 
 def build_model(cfg: ModelConfig) -> Model:

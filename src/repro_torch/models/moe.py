@@ -14,9 +14,18 @@ Each slot's weighted output goes back to its (token, k) place and a token's
 k contributions are summed in ``x.dtype``, then the shared expert is added.
 
 Router: softmax over the logits in f32, top-k, the top-k weights
-renormalised. Ties go to the lower expert index, as ``jax.lax.top_k``
-breaks them: a stable descending sort takes the place of ``topk``, whose
-order on ties torch leaves open.
+renormalised (unless ``MoEConfig.renormalize`` is off, as in Jamba). Ties
+go to the lower expert index, as ``jax.lax.top_k`` breaks them: a stable
+descending sort takes the place of ``topk``, whose order on ties torch
+leaves open.
+
+Held experts (``MoEConfig.n_held_experts``): one chip of an
+expert-parallel deployment holds experts [0, held) of the layer. The
+router keeps all ``n_routed_experts`` columns, tokens route over all of
+them, and only the held experts compute: a slot routed to an expert
+held elsewhere adds nothing here. On one chip the layer runs without the
+deployment's exchange; what the other chips' experts would add is left
+out. ``moe_fwd_ep`` and the mesh path take whole layers only.
 
 Under a mesh (``launch.sharding.use_mesh``) the model calls
 ``moe_fwd_ep``, the reference's explicit expert parallelism: each "model"
@@ -47,16 +56,16 @@ CAPACITY_FACTOR = 1.25
 
 def param_shapes(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Params:
     """The MoE FFN's parameter shapes, with ``lead`` (the stacked layer
-    groups) in front of each: the router (d, E), the stacked experts (E, d,
-    ff) / (E, ff, d), and one gated MLP of width ff · n_shared for the
-    shared experts."""
+    groups) in front of each: the router (d, E), the stacked held experts
+    (H, d, ff) / (H, ff, d), and one gated MLP of width ff · n_shared for
+    the shared experts."""
     m = cfg.moe
-    d, e, ff = cfg.d_model, m.n_routed_experts, m.expert_d_ff
+    d, e, ff, h = cfg.d_model, m.n_routed_experts, m.expert_d_ff, m.held
     lead = tuple(lead)
     p: Params = {"router": lead + (d, e),
-                 "experts": {"wi_gate": lead + (e, d, ff),
-                             "wi_up": lead + (e, d, ff),
-                             "wo": lead + (e, ff, d)}}
+                 "experts": {"wi_gate": lead + (h, d, ff),
+                             "wi_up": lead + (h, d, ff),
+                             "wo": lead + (h, ff, d)}}
     if m.n_shared_experts:
         sff = ff * m.n_shared_experts
         p["shared"] = {"wi_gate": lead + (d, sff), "wi_up": lead + (d, sff),
@@ -64,14 +73,28 @@ def param_shapes(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Params:
     return p
 
 
-def router_topk(logits: torch.Tensor, top_k: int
+def router_topk(logits: torch.Tensor, top_k: int, renormalize: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(T, E) -> weights (T, k) renormalised, indices (T, k)."""
+    """(T, E) -> weights (T, k), renormalised to sum to 1 unless
+    ``renormalize`` is off (then each is its softmax probability), and
+    indices (T, k)."""
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = w[:, :top_k], idx[:, :top_k]
-    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    if renormalize:
+        w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
     return w, idx
+
+
+def _whole_layer(cfg: ModelConfig, where: str) -> None:
+    """The mesh paths split whole layers over their ranks: refuse a chip's
+    share of held experts."""
+    m = cfg.moe
+    if m.held != m.n_routed_experts:
+        raise ValueError(
+            f"{where} takes every routed expert of a layer; {cfg.name} holds "
+            f"{m.held} of {m.n_routed_experts} (n_held_experts): serve it "
+            "with moe_fwd on plain tensors")
 
 
 def capacity(t: int, k: int, e: int, capacity_factor: float = CAPACITY_FACTOR,
@@ -159,6 +182,7 @@ def _moe_fwd_mesh(p: Params, cfg: ModelConfig, x: torch.Tensor,
     dispatch over all E experts on replicated operands (DTensor has no
     sharding rule for ``searchsorted``), its five constraints in place on
     the local tensors."""
+    _whole_layer(cfg, "the mesh MoE path")
     m = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, m.top_k, m.n_routed_experts
@@ -167,7 +191,7 @@ def _moe_fwd_mesh(p: Params, cfg: ModelConfig, x: torch.Tensor,
     def local(x, router, wi_g, wi_u, wo):
         xf = x.reshape(t, d)
         logits = xf.to(torch.float32) @ router.to(torch.float32)
-        w, idx = router_topk(logits, k)
+        w, idx = router_topk(logits, k, m.renormalize)
         out = _buffered(xf, w, idx, 0, e, cap, wi_g, wi_u, wo,
                         constrained=True)
         return out.reshape(b, s, d), _balance_loss(logits, idx, e, k)
@@ -203,6 +227,7 @@ def moe_fwd_ep(p: Params, cfg: ModelConfig, x: torch.Tensor,
     do not divide over "model" or the tokens and d_model do not divide
     over "data" (the reference's rule).
     """
+    _whole_layer(cfg, "moe_fwd_ep")
     rules = shlib._rules()
     mesh = rules["mesh"]
     amap = rules["map"]
@@ -239,7 +264,7 @@ def moe_fwd_ep(p: Params, cfg: ModelConfig, x: torch.Tensor,
     xf = x_blk.reshape(-1, d)
     # routing in f32 through an explicit cast, as the reference's
     logits = xf.to(torch.float32) @ router.to(torch.float32)
-    w, idx = router_topk(logits, k)
+    w, idx = router_topk(logits, k, m.renormalize)
     aux = _balance_loss(logits, idx, e, k)
     part = _buffered(xf, w, idx, mi * e_loc, e_loc, cap, wi_g, wi_u, wo)
 
@@ -273,7 +298,7 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     with trace.span("moe.route"):
         logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
-        w, idx = router_topk(logits, k)
+        w, idx = router_topk(logits, k, m.renormalize)
         aux = _balance_loss(logits, idx, e, k)
 
         order, keep = dispatch(idx, capacity(t, k, e, capacity_factor,
@@ -285,18 +310,26 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
             if sp:
                 trace.count("host_reads")
                 trace.count("d2h_bytes", per_expert.nbytes)
+        # the held experts' slots lead the expert-sorted order
+        n_held = sum(runs[:m.held])
+        if trace.ON:
+            trace.count("moe.routed_slots", sum(runs))
+            trace.count("moe.held_slots", n_held)
 
     ex = p["experts"]
-    ys = []
-    start = 0
-    for j, n in enumerate(runs):
-        if n:
-            h = xf[kept[start:start + n] // k]
-            ys.append((F.silu(h @ ex["wi_gate"][j]) * (h @ ex["wi_up"][j]))
-                      @ ex["wo"][j])
-            start += n
-    wk = w.reshape(-1)[kept].to(x.dtype)[:, None]
-    slots = xf.new_zeros((t * k, d)).index_copy(0, kept, torch.cat(ys) * wk)
+    slots = xf.new_zeros((t * k, d))
+    if n_held:
+        ys = []
+        start = 0
+        for j, n in enumerate(runs[:m.held]):
+            if n:
+                h = xf[kept[start:start + n] // k]
+                ys.append((F.silu(h @ ex["wi_gate"][j])
+                           * (h @ ex["wi_up"][j])) @ ex["wo"][j])
+                start += n
+        mine = kept[:n_held]
+        wk = w.reshape(-1)[mine].to(x.dtype)[:, None]
+        slots.index_copy_(0, mine, torch.cat(ys) * wk)
     out = slots.view(t, k, d).sum(dim=1)
     if "shared" in p:
         out = out + mlp_fwd(p["shared"], xf)

@@ -50,6 +50,8 @@ Spans (name: where it sits; its attrs):
 - ``moe.route``: ``moe_fwd``'s routing: router, top-k, dispatch and the
   host read of the per-expert counts
 - ``moe.host_read``: that read (``per_expert.tolist()``)
+- ``mamba.step``: one Mamba layer's decode step in ``mamba_fwd`` (its
+  projections and the update of its conv window and state)
 
 Counters, kept in total and per request:
 
@@ -59,8 +61,13 @@ Counters, kept in total and per request:
   out
 - ``d2h_bytes``: bytes copied device to host: KIVI's results,
   ``cache_to_kvdata``'s entry, a tick's tokens, the MoE counts
+- ``state_h2d_bytes``: the Mamba layers' ``ssm`` and ``conv`` bytes of
+  the lane copy, a part of ``h2d_bytes``
 - ``host_reads``: blocking device-to-host reads in a step: one a MoE
   layer (its counts), one a tick (its argmax)
+- ``moe.routed_slots``, ``moe.held_slots``: the (token, expert) slots a
+  MoE layer kept, and those of them that went to experts this chip holds
+  (``MoEConfig.n_held_experts``), from the counts of that read
 - ``policy.estimates``: the policy's ``estimate_nbytes`` calls
 
 Bytes count what the code copies toward or from the model's device,
@@ -80,7 +87,7 @@ ON = False
 #: ``record_function`` while a profiler records
 SPANS = ("serve.fetch", "tier.get", "codec.decompress", "policy.rescore",
          "policy.admit", "lane.write", "model.prefill", "model.step",
-         "moe.route", "moe.host_read")
+         "moe.route", "moe.host_read", "mamba.step")
 
 Req = Union[int, Tuple[int, ...], None]
 

@@ -78,9 +78,14 @@ def build_engine(runner: ModelRunner, contexts: Sequence[Context],
         raise ValueError("topology replica count must match n_replicas")
 
     # ---- entry-size scaling: smoke bytes <-> full-scale bytes ----
+    # a mean uncompressed entry: its rows, stored in f32 (twice the bf16
+    # bytes of kv_bytes_per_token), and a Mamba layer's fixed state as
+    # stored (f32); the full-scale entry counts both at bf16
     avg_tokens = float(np.mean([len(c.tokens) for c in contexts]))
-    smoke_entry = max(1.0, avg_tokens * smoke_cfg.kv_bytes_per_token() * 2.0)
-    full_entry = avg_tokens * max(full_cfg.kv_bytes_per_token(), 1)
+    smoke_entry = max(1.0, avg_tokens * smoke_cfg.kv_bytes_per_token() * 2.0
+                      + smoke_cfg.state_bytes())
+    full_entry = (avg_tokens * max(full_cfg.kv_bytes_per_token(), 1)
+                  + full_cfg.state_bytes() / 2.0)
     scale = full_entry / smoke_entry
     # the replica-to-replica link moves the same smoke-scale bytes the
     # tiers store, so its bandwidth scales with them

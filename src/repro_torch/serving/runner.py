@@ -94,10 +94,13 @@ def write_kvdata(cache, kv: KVData, cfg: ModelConfig, lane: int,
     with trace.span("lane.write") as sp:
         n_kept = _write_kvdata(cache, kv, cfg, lane, device)
         if sp:
-            nbytes = sum(kv[n].nbytes for n in _attn_names(cfg)
-                         + ("ssm", "conv") if n in kv)
+            state = sum(kv[n].nbytes for n in ("ssm", "conv") if n in kv)
+            nbytes = state + sum(kv[n].nbytes for n in _attn_names(cfg)
+                                 if n in kv)
             sp.attrs.update(lane=lane, bytes=nbytes)
             trace.count("h2d_bytes", nbytes)
+            if state:
+                trace.count("state_h2d_bytes", state)
         return n_kept
 
 

@@ -75,7 +75,7 @@ def test_mamba_fwd_matches_reference(pair, mode):
     """One layer: a prefill from zeros, a prefill that continues a
     non-zero cache (its conv window and its state h0), and a decode step,
     which updates the port's cache in place."""
-    cfg, _, jp, _, tp = pair
+    cfg, _, jp, tm, tp = pair
     jlayer = jax.tree.map(lambda a: a[1], jp["stack"][0]["mamba"])
     tlayer = {k: v[1] for k, v in tp["stack"][0]["mamba"].items()}
     rng = np.random.RandomState(7)
@@ -94,7 +94,7 @@ def test_mamba_fwd_matches_reference(pair, mode):
         decode=decode)
     tcache = (None if cache is None
               else {k: torch.from_numpy(v.copy()) for k, v in cache.items()})
-    tout, tc = tmamba.mamba_fwd(tlayer, cfg, torch.from_numpy(x),
+    tout, tc = tmamba.mamba_fwd(tlayer, tm.cfg, torch.from_numpy(x),
                                 cache=tcache, decode=decode)
     _close(tout, jout)
     for name in ("conv", "ssm"):
@@ -207,10 +207,17 @@ def test_batcher_writes_state_lanes_whole(runners):
 
 
 def test_engine_summary_equal_with_zero_sized_state_tiers(runners,
-                                                          tmp_path):
-    """``build_engine`` sizes tiers from ``kv_bytes_per_token``, which
-    counts attention layers only, so the reference's tiers hold 1.5 and
-    6 bytes on this model and no request hits; the port reproduces it."""
+                                                          tmp_path,
+                                                          monkeypatch):
+    """The reference's ``build_engine`` sizes tiers from
+    ``kv_bytes_per_token``, which counts attention layers only, so its
+    tiers hold 1.5 and 6 bytes on this model and no request hits. The
+    port counts an entry's fixed state too (``ModelConfig.state_bytes``,
+    ``test_torch_hybrid``); with that term at 0 it reproduces the
+    reference's engine, summary and controller exactly."""
+    from repro_torch.configs.base import ModelConfig
+
+    monkeypatch.setattr(ModelConfig, "state_bytes", lambda self: 0)
     cfg, jr, tr = runners
     out = []
     for runner, build, summ, sub in ((jr, jbuild_engine, jsummarize, "j"),
@@ -219,7 +226,8 @@ def test_engine_summary_equal_with_zero_sized_state_tiers(runners,
         contexts = make_contexts(rng, cfg.vocab_size, 1, min_len=64,
                                  max_len=128, n_probes=1)
         reqs = poisson_requests(rng, contexts, rate_hz=1.0, duration_s=8)
-        rig = build(runner, contexts, jget(ARCH), FULL_PARAMS,
+        full = jget(ARCH) if sub == "j" else tget(ARCH)
+        rig = build(runner, contexts, full, FULL_PARAMS,
                     policy=("kivi", 0.16), dram_entries=1.5,
                     ssd_entries=6.0, ssd_root=str(tmp_path / sub))
         res = rig.engine.process(reqs)

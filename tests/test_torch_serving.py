@@ -134,7 +134,8 @@ def summaries_equal(jr, tr, arch: str, n_active: int, policy, engine_kw,
         contexts = make_contexts(rng, runner.model.cfg.vocab_size, 1,
                                  min_len=64, max_len=128, n_probes=1)
         reqs = poisson_requests(rng, contexts, rate_hz=1.0, duration_s=8)
-        rig = build(runner, contexts, jget(arch), n_active,
+        full = jget(arch) if sub == "j" else tget(arch)
+        rig = build(runner, contexts, full, n_active,
                     policy=policy, dram_entries=1.5, ssd_entries=4.0,
                     ssd_root=str(tmp_path / sub), **engine_kw)
         res = rig.engine.process(reqs)
