@@ -231,7 +231,10 @@ before it phase 6's ``training``, phase 7's ``mamba_training``, phase 8's
 phase 11's ``encdec`` and phase 12's ``launch`` summaries (launches, wall
 times, idle shares, the dry-run rows); the
 last line is
-``{"ok": true, "device": {...}}``. Measurements also go to
+``{"ok": true, "device": {...}}``. Every ``serve`` traces its decode
+steps and fails unless each one replays the runner's CUDA graph
+(``check_decode_graph``); their counts print as ``decode_graph``.
+Measurements also go to
 ``chiprun_out/chip_smoke.json``.
 The measured fused calibration goes beside it (``fused_calibration.json``).
 """
@@ -278,6 +281,7 @@ MLA_ARCH = "deepseek-v2-lite-16b"      # phase 9: MLA, MoE, a dense prefix
 VLM_ARCH = "internvl2-1b"              # phase 10: patches, GQA 14 / 2
 ENCDEC_ARCH = "seamless-m4t-large-v2"  # phase 11: encoder-decoder
 HOST_RANGES = trace.SPANS              # the port's record_function ranges
+DECODE_GRAPH: list = []                # each serve's decode counters
 REPLACES = {"quantize": "src/repro/kernels/kivi/kernel.py:71",
             "dequantize": "src/repro/kernels/kivi/kernel.py:99",
             "decode_attn": "src/repro/kernels/decode_attn/kernel.py:133",
@@ -1190,9 +1194,15 @@ def serve(runner, cfg, n_active: int, kernels=(), want_hits: bool = True,
             for k in c:
                 c[k] = 0
         t0 = time.perf_counter()
-        results = rig.engine.process(requests)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        trace.enable()
+        try:
+            results = rig.engine.process(requests)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            traced = trace.take().counters
+            trace.disable()
+        check_decode_graph(cfg, traced)
         launches = {k: n for c in counters for k, n in c.items()}
         summary = summarize(results,
                             selector_stats=rig.controller.selector.stats)
@@ -1204,6 +1214,25 @@ def serve(runner, cfg, n_active: int, kernels=(), want_hits: bool = True,
                                 profile_label, profile_shares)
                 if profile_label else None)
     return summary, results, requests, contexts, wall_s, launches, prof
+
+
+def check_decode_graph(cfg, counters: dict) -> dict:
+    """The decode steps of one ``serve`` (the tracer's counters): every
+    step over the runner's pooled caches is a CUDA graph replay
+    (``models/decode_graph.py``) and none runs eagerly, with at most one
+    capture a cache shape (the engine's lanes and ``generate_from_kvdata``'s
+    one lane). Recorded in ``DECODE_GRAPH``."""
+    got = {k: counters.get(f"decode.{k}", 0)
+           for k in ("graph_captures", "graph_replays", "eager_steps")}
+    print(f"  decode steps: {got['graph_replays']} graph replays, "
+          f"{got['eager_steps']} eager, {got['graph_captures']} captures")
+    if got["eager_steps"] or not got["graph_replays"]:
+        fail(f"{cfg.name}: the served decode steps did not all replay a "
+             f"graph: {got}")
+    if got["graph_captures"] > 2:
+        fail(f"{cfg.name}: {got['graph_captures']} captures in one serve")
+    DECODE_GRAPH.append({"arch": cfg.name, **got})
+    return got
 
 
 def check_summary(summary, results, n_requests: int,
@@ -1847,11 +1876,11 @@ def routing_gaps(fn):
 
     plain, gaps = moe_lib.router_topk, []
 
-    def recorded(logits, top_k):
+    def recorded(logits, top_k, renormalize=True):
         probs = torch.softmax(logits[-1].float(), dim=-1)
         top = torch.topk(probs, top_k + 1).values
         gaps.append(float(top[top_k - 1] - top[top_k]))
-        return plain(logits, top_k)
+        return plain(logits, top_k, renormalize)
 
     moe_lib.router_topk = recorded
     try:
@@ -2691,12 +2720,13 @@ def main() -> int:
         "fused": fused, "mamba": mamba, "training": training,
         "mamba_training": mamba_training, "moe_serving": moe_serving,
         "mla_serving": mla_serving, "vlm_serving": vlm_serving,
-        "encdec": encdec, "launch": launch,
+        "encdec": encdec, "launch": launch, "decode_graph": DECODE_GRAPH,
         "elapsed_s": time.perf_counter() - T_START},
         indent=1, default=float))
     (out_dir / "fused_calibration.json").write_text(
         json.dumps(fused["calibration"], indent=2))
     full = training["full_width"]
+    print(json.dumps({"decode_graph": DECODE_GRAPH}))
     print(json.dumps({"training": {
         "card": smi,
         "card_vs_cpu_loss_rel_err_max": max(

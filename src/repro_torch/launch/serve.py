@@ -42,9 +42,10 @@ them beside a ``torch.profiler`` trace by subtracting its
 dispatch to its first answer token, and the counters' totals:
 ``h2d_bytes`` (bytes copied host to device: lane copies and KIVI's
 uploads), ``d2h_bytes`` (device to host: KIVI's results, prefilled
-entries, each tick's tokens, the MoE's per-expert counts),
-``host_reads`` (blocking device-to-host reads: one a MoE layer and one
-a decode tick) and ``policy.estimates`` (the policy's size estimates).
+entries, each tick's tokens with its MoE slot counts, a prefill's
+per-expert counts), ``host_reads`` (blocking device-to-host reads: one
+a decode tick, and one a MoE layer of a prefill) and
+``policy.estimates`` (the policy's size estimates).
 The simulated summary is the same with and without it.
 """
 from __future__ import annotations

@@ -48,6 +48,14 @@ class Model:
             return transformer.prefill(params, self.cfg, batch, capacity)
 
     def decode_step(self, params, cache, cur_index, tokens, position=None):
+        """One decode step: a replay of the cache's CUDA graph where it
+        has one that takes this call (``models/decode_graph.py``), else
+        ``transformer.decode_step`` eagerly."""
+        graph = getattr(cache, "graph", None)
+        if graph is not None and graph.takes(params, cur_index, tokens,
+                                             position):
+            return graph.step(cur_index, tokens, position), cache
+        trace.count("decode.eager_steps")
         return transformer.decode_step(params, self.cfg, cache, cur_index,
                                        tokens, position)
 

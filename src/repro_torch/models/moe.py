@@ -12,6 +12,20 @@ zero). Here each expert runs over its kept rows only, a contiguous run of
 the sorted order: the same function, without the rows that hold no token.
 Each slot's weighted output goes back to its (token, k) place and a token's
 k contributions are summed in ``x.dtype``, then the shared expert is added.
+That run-based form needs the per-expert counts on the host, one blocking
+read a layer.
+
+A decode step (``decode``: one token a lane, from the model's
+``decode_step``) of T·k slots no more than the experts held takes a
+fixed-shape form instead, with no host read: every slot gathers its
+expert's weights and all slots run at once as the reference's
+``_expert_ffn`` (``bmm``). Its shapes and its work depend on no routing
+decision, so the step can be captured in a CUDA graph
+(``models/decode_graph.py``). Past the experts held the gather would read
+more weights than the run-based form, which reads each routed expert
+once, so a step of more slots keeps that form. A decode routes dropless,
+so the two forms compute the same slots; they round differently (``bmm``
+against per-expert products).
 
 Router: softmax over the logits in f32, top-k, the top-k weights
 renormalised (unless ``MoEConfig.renormalize`` is off, as in Jamba). Ties
@@ -23,7 +37,8 @@ Held experts (``MoEConfig.n_held_experts``): one chip of an
 expert-parallel deployment holds experts [0, held) of the layer. The
 router keeps all ``n_routed_experts`` columns, tokens route over all of
 them, and only the held experts compute: a slot routed to an expert
-held elsewhere adds nothing here. On one chip the layer runs without the
+held elsewhere adds nothing here (the decode form clamps its index for
+the gather and zeroes its weight). On one chip the layer runs without the
 deployment's exchange; what the other chips' experts would add is left
 out. ``moe_fwd_ep`` and the mesh path take whole layers only.
 
@@ -39,7 +54,7 @@ tensors.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -284,17 +299,65 @@ def moe_fwd_ep(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return out, aux
 
 
+def decode_form(cfg: ModelConfig, t: int) -> bool:
+    """Whether a decode step over ``t`` tokens takes the fixed-shape form:
+    while its T·k gathered experts are no more than the experts held."""
+    return t * cfg.moe.top_k <= cfg.moe.held
+
+
+def decode_slot_counts(cfg: ModelConfig, t: int) -> Dict[str, int]:
+    """The slot counters one layer's decode form adds over ``t`` tokens:
+    all T·k slots are routed, and held where the chip holds every expert
+    (elsewhere that takes a read of the routing, so it is not counted)."""
+    n = t * cfg.moe.top_k
+    if cfg.moe.held < cfg.moe.n_routed_experts:
+        return {"moe.routed_slots": n}
+    return {"moe.routed_slots": n, "moe.held_slots": n}
+
+
+def _decode_fwd(p: Params, cfg: ModelConfig, xf: torch.Tensor
+                ) -> torch.Tensor:
+    """The decode form over the (T, d) tokens ``xf``: all T·k slots at
+    once, each on its expert's gathered weights, with no host read. A
+    slot routed to an expert not held takes the last held one's weights
+    and a weight of 0."""
+    m = cfg.moe
+    t, d = xf.shape
+    k = m.top_k
+    with trace.span("moe.route"):
+        logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+        w, idx = router_topk(logits, k, m.renormalize)
+    if trace.ON:
+        for name, n in decode_slot_counts(cfg, t).items():
+            trace.count(name, n)
+    e = torch.clamp(idx, max=m.held - 1).reshape(-1)          # (T·k,)
+    ex = p["experts"]
+    h = xf[:, None].expand(t, k, d).reshape(t * k, 1, d)
+    y = _expert_ffn(ex["wi_gate"][e], ex["wi_up"][e], ex["wo"][e], h)
+    wk = torch.where(idx < m.held, w, 0.0).reshape(t * k, 1).to(xf.dtype)
+    return (y[:, 0] * wk).view(t, k, d).sum(dim=1)
+
+
 def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
             capacity_factor: float = CAPACITY_FACTOR,
-            dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            dropless: bool = False, decode: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x: (B, S, d) -> (out, aux). aux is the Switch-style load-balance
-    loss E · Σ_e frac_tokens_e · frac_probs_e (f32)."""
+    loss E · Σ_e frac_tokens_e · frac_probs_e (f32). ``decode`` (a decode
+    step on plain tensors) takes the fixed-shape form where
+    ``decode_form`` allows, dropless, and returns aux None: the decode
+    step has no use for it."""
     if isinstance(x, DTensor):
         return _moe_fwd_mesh(p, cfg, x, capacity_factor, dropless)
     m = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, m.top_k, m.n_routed_experts
     xf = x.reshape(t, d)
+    if decode and decode_form(cfg, t):
+        out = _decode_fwd(p, cfg, xf)
+        if "shared" in p:
+            out = out + mlp_fwd(p["shared"], xf)
+        return out.reshape(b, s, d).to(x.dtype), None
 
     with trace.span("moe.route"):
         logits = xf.to(torch.float32) @ p["router"].to(torch.float32)

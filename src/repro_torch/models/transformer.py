@@ -264,7 +264,9 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
     [0, S), or a mamba layer's final conv window and state. A block with
     cross-attention attends over ``enc_out``'s K/V, which the prefill
     writes whole into the cross cache, or, in decode, over the cached
-    ones. The MoE FFN is dropless under decode or ``moe_dropless``."""
+    ones. The MoE FFN is dropless under decode or ``moe_dropless``; a
+    decode without a mesh takes its fixed-shape form where
+    ``moe.decode_form`` allows, whose balance loss is None."""
     h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
     if kind == LayerKind.MAMBA:
         cm = None if cache_j is None else cache_j["mamba"]
@@ -310,11 +312,13 @@ def _apply_block(bp: Params, cfg: ModelConfig, kind: LayerKind, x,
     aux = None
     if cfg.ffn_kind != FFNKind.NONE:
         h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        if "ffn_moe" in bp:
-            moe_impl = (moe_lib.moe_fwd_ep if shlib._rules() is not None
-                        else moe_lib.moe_fwd)
-            out, aux = moe_impl(bp["ffn_moe"], cfg, h,
-                                dropless=moe_dropless or decode)
+        if "ffn_moe" in bp and shlib._rules() is not None:
+            out, aux = moe_lib.moe_fwd_ep(bp["ffn_moe"], cfg, h,
+                                          dropless=moe_dropless or decode)
+        elif "ffn_moe" in bp:
+            out, aux = moe_lib.moe_fwd(bp["ffn_moe"], cfg, h,
+                                       dropless=moe_dropless or decode,
+                                       decode=decode)
         else:
             out = mlp_fwd(bp["ffn"], h)
         x = x + out
@@ -628,8 +632,13 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     cur_index: cache WRITE SLOT — scalar (aligned batch) or (B,) per-lane
     (continuous batching / ragged sessions). position: optional RoPE
     position of the new token (defaults to cur_index); differs from the
-    slot when the cache holds a token-dropped entry. The cache is updated
-    in place and returned."""
+    slot when the cache holds a token-dropped entry. Index tensors given
+    on the host (a batcher's tick) are moved to the model's device here,
+    once. The cache is updated in place and returned."""
+    dev = params["embed"].device
+    tokens, cur_index, position = (
+        v.to(dev) if torch.is_tensor(v) and not isinstance(v, DTensor)
+        else v for v in (tokens, cur_index, position))
     x = _embed(params["embed"], tokens).to(_dtype(cfg.dtype))
     b = tokens.shape[0]
     pos = cur_index if position is None else position

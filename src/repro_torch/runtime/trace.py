@@ -46,12 +46,19 @@ Spans (name: where it sits; its attrs):
   ``lane``, ``bytes``
 - ``model.prefill``: ``Model.prefill``; ``tokens``
 - ``model.step``: the batcher's decode step (its ``Model.decode_step``
-  call); ``lanes``, ``ctx`` (each lane's context length)
-- ``moe.route``: ``moe_fwd``'s routing: router, top-k, dispatch and the
-  host read of the per-expert counts
-- ``moe.host_read``: that read (``per_expert.tolist()``)
+  call) and its one token read; ``lanes``, ``ctx`` (each lane's context
+  length)
+- ``moe.route``: ``moe_fwd``'s routing: router and top-k; outside a
+  decode step (prefill, training) also the dispatch and the host read of
+  the per-expert counts
+- ``moe.host_read``: that read (``per_expert.tolist()``); a decode step
+  has none
 - ``mamba.step``: one Mamba layer's decode step in ``mamba_fwd`` (its
   projections and the update of its conv window and state)
+
+A decode step replayed from its CUDA graph (``models/decode_graph.py``)
+runs no Python below ``Model.decode_step``, so it records no
+``moe.route`` or ``mamba.step`` span.
 
 Counters, kept in total and per request:
 
@@ -60,20 +67,27 @@ Counters, kept in total and per request:
   per-lane token, slot and position indices (20 bytes a lane) are left
   out
 - ``d2h_bytes``: bytes copied device to host: KIVI's results,
-  ``cache_to_kvdata``'s entry, a tick's tokens, the MoE counts
+  ``cache_to_kvdata``'s entry, a tick's tokens, a prefill's MoE counts
 - ``state_h2d_bytes``: the Mamba layers' ``ssm`` and ``conv`` bytes of
   the lane copy, a part of ``h2d_bytes``
-- ``host_reads``: blocking device-to-host reads in a step: one a MoE
-  layer (its counts), one a tick (its argmax)
+- ``host_reads``: blocking device-to-host reads of the serving path:
+  one a tick (its argmax), and in a prefill one a MoE layer (its counts)
 - ``moe.routed_slots``, ``moe.held_slots``: the (token, expert) slots a
   MoE layer kept, and those of them that went to experts this chip holds
-  (``MoEConfig.n_held_experts``), from the counts of that read
+  (``MoEConfig.n_held_experts``): in a prefill from the counts of its
+  read; in a decode step, which keeps all T·k slots and reads nothing,
+  counted on the host, held slots only where the chip holds every expert
+  (they are then all of them)
+- ``decode.graph_captures``, ``decode.graph_replays``,
+  ``decode.eager_steps``: decode steps captured into a CUDA graph,
+  replayed from one, and run eagerly (``Model.decode_step``)
 - ``policy.estimates``: the policy's ``estimate_nbytes`` calls
 
 Bytes count what the code copies toward or from the model's device,
 whatever that device is (on the CPU the copies are no-ops)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -213,6 +227,18 @@ def count(name: str, n: int = 1) -> None:
     if t.req is not None:
         mine = t.by_request.setdefault(t.req, {})
         mine[name] = mine.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def paused():
+    """Tracing off inside (a decode graph's warm-up and capture, whose
+    steps serve no request), back as it was after."""
+    global ON
+    was, ON = ON, False
+    try:
+        yield
+    finally:
+        ON = was
 
 
 def set_request(req: Union[int, Sequence[int], None]) -> None:

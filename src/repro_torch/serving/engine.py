@@ -461,7 +461,23 @@ class ServingEngine:
                 skip_quality: bool = False) -> List[RequestResult]:
         """Simulate the full request stream on N replicas; returns one
         RequestResult per request with the queue/load/prefill/decode
-        breakdown. Loads and prefills overlap decode (see module doc)."""
+        breakdown. Loads and prefills overlap decode (see module doc).
+        Each replica's lanes take their cache from the runner's pool for
+        the call and give it back at its end."""
+        runner = self.runner
+        batchers = []
+        try:
+            for _ in range(self.n_replicas):
+                batchers.append(ContinuousBatcher(
+                    runner.model, runner.params, self.tm, runner.pool,
+                    n_slots=self.n_lanes, capacity=runner.capacity))
+            return self._process(requests, skip_quality, batchers)
+        finally:
+            for b in batchers:
+                b.close()
+
+    def _process(self, requests: Sequence[Request], skip_quality: bool,
+                 batchers: List[ContinuousBatcher]) -> List[RequestResult]:
         loop = EventLoop()
         events = self.last_trace = []
         topo = self.topology
@@ -492,12 +508,7 @@ class ServingEngine:
             if topo is None or topo.shared_dram:
                 return fast_tier
             return topo.dram_for(rep.idx)
-        replicas = [
-            _Replica(i, ContinuousBatcher(self.runner.model,
-                                          self.runner.params, self.tm,
-                                          n_slots=self.n_lanes,
-                                          capacity=self.runner.capacity))
-            for i in range(self.n_replicas)]
+        replicas = [_Replica(i, b) for i, b in enumerate(batchers)]
         if self.chunk_tokens > 0:
             # unified compute: decode ticks and prefill chunks share ONE
             # single-stream channel per replica (see LaneSet.tick);

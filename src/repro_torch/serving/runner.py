@@ -10,7 +10,10 @@ KVData layout (batch squeezed, numpy, storage-friendly):
          arrays for hybrids)
   always: {"positions": (T_kept,)} after token dropping.
 
-The runner computes on the device its params live on.
+The runner computes on the device its params live on. Its decode caches
+come from its ``CachePool`` (``models/decode_graph.py``): made once a
+(lanes, capacity), kept for the runner's life and, on CUDA, each with its
+decode step captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from repro_torch.configs.base import AttnKind, LayerKind, ModelConfig
 from repro_torch.core.compression.base import KVData
 from repro_torch.models import Model
+from repro_torch.models.decode_graph import CachePool
 from repro_torch.models.transformer import _prefix_count
 from repro_torch.runtime import trace
 
@@ -143,6 +147,11 @@ class ModelRunner:
     model: Model
     params: dict
     capacity: int = 1024
+    pool: CachePool = dataclasses.field(init=False, repr=False,
+                                        compare=False)
+
+    def __post_init__(self):
+        self.pool = CachePool(self.model)
 
     @property
     def device(self) -> torch.device:
@@ -160,26 +169,28 @@ class ModelRunner:
     # -- generation ------------------------------------------------------------
     def generate_from_kvdata(self, kv: KVData, orig_len: int,
                              question: np.ndarray, max_new: int) -> List[int]:
-        cache, n_kept = kvdata_to_cache(kv, self.model.cfg, self.model,
-                                        self.capacity, self.device)
-        toks = list(np.asarray(question, np.int64))
-        out: List[int] = []
-        slot, pos = n_kept, orig_len
-        logits = None
-        for step in range(len(toks) + max_new):
-            if step < len(toks):
-                nxt = int(toks[step])
-            else:
-                nxt = int(torch.argmax(logits[0, -1]))
-                out.append(nxt)
-            if slot >= self.capacity:
-                break
-            logits, cache = self.model.decode_step(
-                self.params, cache, slot,
-                torch.tensor([[nxt]], dtype=torch.long, device=self.device),
-                pos)
-            slot += 1
-            pos += 1
+        """Greedy answer over a stored entry, in a one-lane cache lent by
+        the pool (the entry written into it as ``kvdata_to_cache`` would
+        write it into a fresh one)."""
+        with self.pool.lease(self.params, 1, self.capacity) as cache:
+            n_kept = write_kvdata(cache, kv, self.model.cfg, 0, self.device)
+            toks = list(np.asarray(question, np.int64))
+            out: List[int] = []
+            slot, pos = n_kept, orig_len
+            logits = None
+            for step in range(len(toks) + max_new):
+                if step < len(toks):
+                    nxt = int(toks[step])
+                else:
+                    nxt = int(torch.argmax(logits[0, -1]))
+                    out.append(nxt)
+                if slot >= self.capacity:
+                    break
+                logits, cache = self.model.decode_step(
+                    self.params, cache, slot,
+                    torch.tensor([[nxt]], dtype=torch.long), pos)
+                slot += 1
+                pos += 1
         return out
 
     def generate_uncompressed(self, ctx_tokens: np.ndarray,

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.compression.base import KVData
 from repro_torch.models import Model
+from repro_torch.models.decode_graph import CachePool
 from repro_torch.runtime import trace
 from repro_torch.serving.runner import write_kvdata
 from repro_torch.serving.timemodel import TimeModel
@@ -81,19 +82,27 @@ class ScheduledResult:
 
 
 class ContinuousBatcher:
+    """The lanes' cache is lent by ``pool`` (a
+    ``models.decode_graph.CachePool``) and given back by ``close``. A
+    pooled cache on CUDA replays each step as one CUDA graph."""
+
     def __init__(self, model: Model, params, time_model: TimeModel,
-                 n_slots: int = 4, capacity: int = 1024):
+                 pool: CachePool, n_slots: int = 4, capacity: int = 1024):
         self.model = model
         self.params = params
         self.tm = time_model
         self.n_slots = n_slots
         self.capacity = capacity
         self.device = params["embed"].device
-        self.cache = model.init_cache(batch=n_slots, capacity=capacity,
-                                      device=self.device)
+        self.pool = pool
+        self.cache = pool.acquire(params, n_slots, capacity)
         self.slots = [SlotState() for _ in range(n_slots)]
-        # eager decode (the reference shares one jit wrapper per model)
         self._decode = model.decode_step
+
+    def close(self) -> None:
+        """Give the cache back to the pool (the batcher serves no more)."""
+        self.pool.release(self.cache)
+        self.cache = None
 
     # -- lane loading ---------------------------------------------------------
     def _write_lane(self, lane: int, kv: KVData) -> int:
@@ -159,17 +168,16 @@ class ContinuousBatcher:
                             else (s.generated[-1] if s.generated else 0))
             write[i] = min(s.write_slot, self.capacity - 1)
             pos[i] = s.position
-        dev = self.device
         if trace.ON:
             trace.set_request([self.slots[i].req.req_id for i in active])
         with trace.span("model.step") as sp:
             if sp:
                 sp.attrs.update(lanes=active,
                                 ctx=[int(pos[i]) + 1 for i in active])
+            # host tensors: the model uploads them (a graph's static inputs)
             logits, self.cache = self._decode(
-                self.params, self.cache, torch.from_numpy(write).to(dev),
-                torch.from_numpy(tokens).to(dev, torch.long),
-                torch.from_numpy(pos).to(dev))
+                self.params, self.cache, torch.from_numpy(write),
+                torch.from_numpy(tokens).long(), torch.from_numpy(pos))
             nxt = torch.argmax(logits[:, 0], dim=-1)
             if sp:
                 trace.count("host_reads")

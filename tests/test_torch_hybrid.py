@@ -161,11 +161,15 @@ def _moe_layer(cfg: ModelConfig, held_lo: int, held_hi: int, full: dict):
     return part, p
 
 
+@pytest.mark.parametrize("decode", [False, True], ids=["runs", "decode"])
 @pytest.mark.parametrize("renormalize", [False, True])
-def test_held_halves_add_up_to_the_whole_layer(renormalize):
+def test_held_halves_add_up_to_the_whole_layer(renormalize, decode):
     """Two chips of an expert-parallel deployment, each holding half the
     experts with the router whole: their moe_fwd outputs add up to the
-    layer that holds all of them; one half alone does not."""
+    layer that holds all of them; one half alone does not. In the decode
+    form (one token a lane) each half's slots routed to the other half
+    take a clamped expert's weights and add nothing, and the whole layer
+    agrees with the run-based form."""
     cfg = _published_jamba(held=0)
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, renormalize=renormalize))
@@ -175,29 +179,39 @@ def test_held_halves_add_up_to_the_whole_layer(renormalize):
             "experts": {"wi_gate": torch.randn(e, d, ff, generator=g) * 0.1,
                         "wi_up": torch.randn(e, d, ff, generator=g) * 0.1,
                         "wo": torch.randn(e, ff, d, generator=g) * 0.1}}
-    x = torch.randn(2, 24, d, generator=g)
-    whole, _ = moe_lib.moe_fwd(full, cfg, x, dropless=True)
+    # a decode step of 2 lanes: T·k = 4, the experts each half holds
+    x = torch.randn(2, 1, d, generator=g) if decode else \
+        torch.randn(2, 24, d, generator=g)
+    whole, _ = moe_lib.moe_fwd(full, cfg, x, dropless=True, decode=decode)
     halves = []
     for lo, hi in ((0, e // 2), (e // 2, e)):
         part, p = _moe_layer(cfg, lo, hi, full)
-        halves.append(moe_lib.moe_fwd(p, part, x, dropless=True)[0])
+        halves.append(moe_lib.moe_fwd(p, part, x, dropless=True,
+                                      decode=decode)[0])
     # f32 sums of the same products in another order
     assert torch.allclose(halves[0] + halves[1], whole, rtol=1e-5, atol=1e-6)
     assert not torch.allclose(halves[0], whole, atol=1e-3)
+    if decode:
+        runs, _ = moe_lib.moe_fwd(full, cfg, x, dropless=True)
+        assert torch.allclose(whole, runs, rtol=1e-5, atol=1e-6)
 
 
-def test_a_chip_whose_tokens_all_go_elsewhere_adds_nothing():
-    cfg = _published_jamba(held=1)
+@pytest.mark.parametrize("decode", [False, True], ids=["runs", "decode"])
+def test_a_chip_whose_tokens_all_go_elsewhere_adds_nothing(decode):
+    # the decode form takes a step of at most as many slots as experts
+    # held: one token's two, over two held experts
+    held = 2 if decode else 1
+    cfg = _published_jamba(held=held)
     d, e, ff = cfg.d_model, cfg.moe.n_routed_experts, cfg.moe.expert_d_ff
     router = torch.zeros(d, e)
     router[:, 5] = 1.0
     router[:, 6] = 0.5
     p = {"router": router,
-         "experts": {"wi_gate": torch.ones(1, d, ff),
-                     "wi_up": torch.ones(1, d, ff),
-                     "wo": torch.ones(1, ff, d)}}
-    x = torch.ones(1, 3, d)
-    out, _ = moe_lib.moe_fwd(p, cfg, x, dropless=True)
+         "experts": {"wi_gate": torch.ones(held, d, ff),
+                     "wi_up": torch.ones(held, d, ff),
+                     "wo": torch.ones(held, ff, d)}}
+    x = torch.ones(1, 1, d) if decode else torch.ones(1, 3, d)
+    out, _ = moe_lib.moe_fwd(p, cfg, x, dropless=True, decode=decode)
     assert torch.equal(out, torch.zeros_like(out))
 
 
@@ -350,10 +364,13 @@ def test_a_hybrid_serve_traces_its_state_and_experts(tmp_path):
     c = rec.counters
     assert c["state_h2d_bytes"] == kv["ssm"].nbytes + kv["conv"].nbytes
     assert c["state_h2d_bytes"] < c["h2d_bytes"]
-    assert 0 < c["moe.held_slots"] <= c["moe.routed_slots"]
+    # a hit's decode steps read no routing back: the chip holds 4 of 8
+    # experts, so which slots it held is not counted (a prefill's read
+    # counts it)
+    assert "moe.held_slots" not in c
     # one layer's picks: k a token, every MoE layer
     n_moe = sum(cfg.uses_moe_at(i) for i in range(cfg.n_layers))
-    assert c["moe.routed_slots"] % n_moe == 0
+    assert c["moe.routed_slots"] == len(steps) * n_moe * cfg.moe.top_k
 
 
 def test_a_hybrid_serve_with_the_tracer_off_records_none(tmp_path):

@@ -183,7 +183,7 @@ def test_batcher_writes_state_lanes_whole(runners):
     cfg, jr, tr = runners
     tm = TimeModel(jget(ARCH), A100, FULL_PARAMS)
     jb = JBatcher(jr.model, jr.params, tm, n_slots=2, capacity=64)
-    tb = TBatcher(tr.model, tr.params, tm, n_slots=2, capacity=64)
+    tb = TBatcher(tr.model, tr.params, tm, tr.pool, n_slots=2, capacity=64)
     rng = np.random.RandomState(5)
     kvs = [jr.prefill_entry(rng.randint(0, cfg.vocab_size, n))
            for n in (20, 31)]

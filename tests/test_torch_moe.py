@@ -27,6 +27,7 @@ from repro_torch.device import cap_test_threads
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import moe as tmoe
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.runtime import trace
 from repro_torch.serving.runner import ModelRunner as TRunner
 from repro_torch.training import tree as tree_lib
 from test_torch_models import FULL_PARAMS
@@ -117,6 +118,48 @@ def test_moe_fwd_matches(arch, dropless):
     assert dropped == 0 if dropless else dropped > 0
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **MOE_TOL)
     np.testing.assert_allclose(float(taux), float(jaux), **MOE_TOL)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"],
+                         ids=["routed", "shared"])
+def test_moe_decode_form_matches(arch):
+    """The decode form (a step of 4 lanes, one token each, so T·k = 8 is
+    the experts held: every slot on its expert's gathered weights, no
+    host read) against the run-based form and the reference's dropless
+    ``moe_fwd``, within the same tolerance; it returns no balance loss."""
+    cfg, jp, x = _moe_layer(arch)
+    x = np.ascontiguousarray(x.reshape(24, 1, -1)[:4])
+    tcfg = tget(arch, smoke=True)
+    tp = _torch_tree(jp)
+    jout, _ = jmoe.moe_fwd(jp, cfg, jnp.asarray(x), dropless=True)
+    runs, _ = tmoe.moe_fwd(tp, tcfg, torch.from_numpy(x), dropless=True)
+    dec, aux = tmoe.moe_fwd(tp, tcfg, torch.from_numpy(x), dropless=True,
+                            decode=True)
+    assert aux is None and dec.shape == runs.shape
+    np.testing.assert_allclose(dec.numpy(), np.asarray(jout), **MOE_TOL)
+    np.testing.assert_allclose(dec.numpy(), runs.numpy(), **MOE_TOL)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"],
+                         ids=["routed", "shared"])
+def test_a_decode_past_the_held_experts_keeps_the_run_based_form(arch):
+    """A decode step of 24 lanes (T·k = 48 over 8 experts) would gather
+    more expert weights than the run-based form reads: it takes that form,
+    bit for bit, with its balance loss and its one host read."""
+    _, jp, x = _moe_layer(arch)
+    x = torch.from_numpy(np.ascontiguousarray(x.reshape(24, 1, -1)))
+    tcfg = tget(arch, smoke=True)
+    tp = _torch_tree(jp)
+    assert not tmoe.decode_form(tcfg, 24) and tmoe.decode_form(tcfg, 4)
+    runs, raux = tmoe.moe_fwd(tp, tcfg, x, dropless=True)
+    trace.enable()
+    try:
+        dec, aux = tmoe.moe_fwd(tp, tcfg, x, dropless=True, decode=True)
+        rec = trace.take()
+    finally:
+        trace.disable()
+    assert torch.equal(dec, runs) and torch.equal(aux, raux)
+    assert rec.counters["host_reads"] == 1
 
 
 # ---------------------------------------------------------------------------

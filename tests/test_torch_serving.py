@@ -85,7 +85,7 @@ def test_batcher_ticks_match(runners):
     cfg, jr, tr = runners
     tm = TimeModel(jget("adaptcache-8b"), A100, 8_030_000_000)
     jb = JBatcher(jr.model, jr.params, tm, n_slots=3, capacity=64)
-    tb = TBatcher(tr.model, tr.params, tm, n_slots=3, capacity=64)
+    tb = TBatcher(tr.model, tr.params, tm, tr.pool, n_slots=3, capacity=64)
     rng = np.random.RandomState(4)
     kvs = [jr.prefill_entry(rng.randint(0, cfg.vocab_size, n))
            for n in (20, 33)]

@@ -31,11 +31,14 @@ def test_traced_cell_reads_the_program(cell):
     prog = json.loads(lines[-1].removeprefix("program "))
     bench_line = json.loads(lines[-2])
     assert bench_line["correct"] is True
-    for k in ("fetch_rescore_ms", "lane_write_ms", "moe_host_read_ms",
-              "h2d_mb"):
+    for k in ("fetch_rescore_ms", "lane_write_ms", "h2d_mb"):
         assert prog[k] is not None and prog[k] > 0, k
     assert 0 < prog["fetch_covered"] <= 1
-    assert prog["counters"]["host_reads"] > 0
+    # a hit-only window: every step's MoE stays on the device, and each
+    # step makes one read (its tokens), which the CPU steps eagerly
+    assert prog["moe_host_read_ms"] == 0.0
+    c = prog["counters"]
+    assert c["host_reads"] == c["decode.eager_steps"] > 0
     assert prog["wall_first_token_p50_s"] > 0
     assert prog["requests"] > 0
 

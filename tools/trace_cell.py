@@ -15,6 +15,7 @@ benchmark's readers count them:
   request
 - ``lane_write_ms``: ``lane.write``, a request
 - ``moe_host_read_ms``: ``moe.host_read`` within a ``model.step``, a step
+  (0 since a decode step's MoE reads nothing to the host)
 - ``h2d_mb``: ``h2d_bytes`` / 1e6, a request
 - ``fetch_covered``: the share of ``serve.fetch``'s wall its children
   cover
